@@ -3,8 +3,10 @@ structure learning).
 
 Each module sits at the path of its JAX counterpart
 (``laplace_gnn_tpu/x/y.py`` -> ``laplace_gnn_torch/x/y.py``); the Pallas
-aggregation kernel ``ops/pallas_spmm.py`` becomes the hand-written CUDA
-kernel behind ``ops/fused_spmm.py``. The package imports ``torch`` and
+kernels become hand-written CUDA kernels: the aggregation of
+``ops/pallas_spmm.py`` behind ``ops/fused_spmm.py``, the flash attention
+forward and backward of ``ops/pallas_attention.py`` behind
+``ops/flash_attention.py``. The package imports ``torch`` and
 ``numpy`` only. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 """

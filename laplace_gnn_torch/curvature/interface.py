@@ -50,14 +50,16 @@ class CurvatureBackend:
         raise NotImplementedError
 
     def _kron(self, X, y, N: int, fisher_type: str = "type-2",
-              kfac_approx: str = "expand"):
+              kfac_approx: str = "expand", mixed_diag: bool = True):
         """Factors on this batch times the likelihood factor, and the loss
-        from the same forward."""
+        from the same forward. ``mixed_diag`` (on by default): parameters
+        outside the Linear tap sites get exact-diagonal blocks."""
         kron, out = compute_kfac_factors(
             self.model, self.params, X, y, likelihood=self.likelihood,
             fisher_type=fisher_type,
             kfac_approx=kfac_approx, exclude=self.exclude,
-            last_layer=self.last_layer, N=N, return_output=True)
+            last_layer=self.last_layer, N=N, return_output=True,
+            mixed_diag=mixed_diag)
         kron = kron * self.factor
         loss = self.factor * self.lossfunc(out, y)
         return loss, kron

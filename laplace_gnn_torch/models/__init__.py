@@ -1,5 +1,6 @@
 from .base_gnn import BaseGNN
-from .layers import GCNConv
-from .models import GCN, STEGCN, FusedAdjOp
+from .layers import GATConv, GCNConv
+from .models import GAT, GCN, STEGCN, FusedAdjOp
 
-__all__ = ["BaseGNN", "GCNConv", "GCN", "STEGCN", "FusedAdjOp"]
+__all__ = ["BaseGNN", "GATConv", "GCNConv", "GAT", "GCN", "STEGCN",
+           "FusedAdjOp"]

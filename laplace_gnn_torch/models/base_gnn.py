@@ -15,6 +15,7 @@ slices the requested output rows at the end.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
@@ -32,6 +33,16 @@ def _as_tensor(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _shallow_clone(module: nn.Module) -> nn.Module:
+    """A new module object that shares the parameters, buffers and
+    submodules of ``module``, with registries of its own (so assigning a
+    submodule or attribute on the clone leaves ``module`` as it was)."""
+    clone = copy.copy(module)
+    for key in ("_parameters", "_buffers", "_modules"):
+        clone.__dict__[key] = dict(module.__dict__[key])
+    return clone
 
 
 class BaseGNN(nn.Module):
@@ -119,6 +130,30 @@ class BaseGNN(nn.Module):
 
     def full_adj(self, params: dict) -> torch.Tensor:
         return params["adj"]
+
+    def jvp_safe(self) -> "BaseGNN":
+        """Clone whose ``attention_impl="flash"`` convs run the plain
+        attention instead, sharing every parameter and buffer.
+
+        The flash Function has a kernel for its backward and no forward-mode
+        rule, so ``torch.func.jvp`` (the mixed-diagonal KFAC blocks) and a
+        second derivative cannot pass through it. Curvature code calls this
+        before closing over the model; training and inference keep the
+        kernels. Both paths compute the same math. Callable impls are kept
+        (they are plain PyTorch). Returns ``self`` when nothing needs
+        stripping."""
+        if not any(getattr(c, "attention_impl", None) == "flash"
+                   for c in self.convs):
+            return self
+        convs = []
+        for c in self.convs:
+            if getattr(c, "attention_impl", None) == "flash":
+                c = _shallow_clone(c)
+                c.attention_impl = None
+            convs.append(c)
+        m = _shallow_clone(self)
+        m.convs = nn.ModuleList(convs)
+        return m
 
     # --- forward ----------------------------------------------------------
     def forward(self, x_indices=None, taps: Optional[TapCollector] = None,

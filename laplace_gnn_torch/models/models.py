@@ -1,5 +1,6 @@
-"""GCN and STE-GCN (counterpart of ``laplace_gnn_tpu/models/models.py``;
-the other models of the zoo are not ported yet)."""
+"""GCN, STE-GCN and GAT (counterpart of
+``laplace_gnn_tpu/models/models.py``; the other models of the zoo are not
+ported yet)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from ..ops.adjacency import (binarize_ste, fill_diagonal, fill_diagonal_any,
 from ..ops.fused_spmm import (StaticNormAdjOp, norm_aggregate,
                               ste_norm_aggregate)
 from .base_gnn import BaseGNN
-from .layers import GCNConv
+from .layers import GATConv, GCNConv
 
 
 class FusedAdjOp:
@@ -110,3 +111,50 @@ class STEGCN(BaseGNN):
 
     def init_conv(self, in_channels, out_channels, name, **kwargs):
         return GCNConv(in_channels, out_channels, name=name, **kwargs)
+
+
+class GAT(BaseGNN):
+    """Dense multi-head graph attention with self-loops.
+
+    ``heads``, ``concat``, ``row_block``, ``attn_dtype`` and
+    ``attention_impl`` go to every :class:`GATConv`; with ``concat`` a
+    layer's output channels are split over the heads. ``mask_dtype``
+    (e.g. ``torch.int8``) serves the attention ``(adj > 0)`` in that dtype
+    instead of the float32 adjacency: exact, since attention reads only
+    ``adj > 0`` and GAT never updates its adjacency. The cast runs on every
+    forward (an extra read of the N x N adjacency that XLA hoists out of
+    the JAX package's loops); caching it is left to later work."""
+
+    def __init__(self, in_channels, hidden_channels, out_channels, num_layers,
+                 X, init_adj, dropout_p=0.5, act="relu", act_kwargs=None,
+                 symmetric: bool = False, mask_dtype=None, **kwargs):
+        init_adj = fill_diagonal_any(init_adj, 1.0)
+        super().__init__(in_channels, hidden_channels, out_channels,
+                         num_layers, X, init_adj, dropout_p, act, act_kwargs,
+                         symmetric=symmetric, **kwargs)
+        self.mask_dtype = _torch_dtype(mask_dtype)
+
+    def forward_adj(self, taps: Optional[TapCollector] = None):
+        if self.mask_dtype is not None:
+            return (self.adj > 0).to(self.mask_dtype)
+        return self.adj
+
+    def init_conv(self, in_channels, out_channels, name, **kwargs):
+        heads = kwargs.pop("heads", 1)
+        concat = kwargs.pop("concat", True)
+        if concat and out_channels % heads != 0:
+            raise ValueError(
+                f"Ensure that the number of output channels of 'GATConv' "
+                f"(got '{out_channels}') is divisible by the number of heads "
+                f"(got '{heads}')")
+        if concat:
+            out_channels = out_channels // heads
+        return GATConv(in_channels, out_channels, heads=heads, concat=concat,
+                       name=name, **kwargs)
+
+
+def _torch_dtype(dtype) -> Optional[torch.dtype]:
+    """``None``, a ``torch.dtype`` or its name (``"int8"``)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(dtype))

@@ -53,6 +53,10 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
     if hessian_structure != "kron":
         raise NotImplementedError(
             f"hessian_structure {hessian_structure!r} is not ported yet")
+    # the curvature runs forward-mode tangent passes (mixed-diagonal blocks
+    # of GAT's attention parameters), which the flash kernels' Function
+    # cannot take: use the clone with the plain attention (same math)
+    model = model.jvp_safe() if hasattr(model, "jvp_safe") else model
     H_factor = 1.0 / (sigma_noise ** 2) / temperature
 
     static_A_eigvals: dict = {}
@@ -85,6 +89,8 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
                 tasks.append(f)
 
         for group, site_name in zip(kron.kfacs, group_sites):
+            if site_name is None:          # exact-diagonal block
+                continue
             if len(group) == 1:
                 add(site_name, "B", group[0], 1)
             else:
@@ -99,7 +105,9 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
         out = 0.0
         for group, site_name in zip(kron.kfacs, group_sites):
             if len(group) == 1:
-                lb = lam_of(site_name, "B", 1)
+                # an exact-diagonal block is its own eigenvalues
+                lb = (clip_min0(group[0]) if site_name is None
+                      else lam_of(site_name, "B", 1))
                 out = out + torch.sum(torch.log(H_factor * lb + prior_prec))
             else:
                 lb = lam_of(site_name, "B", 2)
@@ -111,12 +119,16 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
         return out
 
     def _group_sites(backend):
-        """Owning tap-site name per Kron block (posterior-leaf order)."""
+        """Owning tap-site name per Kron block (posterior-leaf order); None
+        for an exact-diagonal block (no Linear site)."""
         sites, _ = _posterior_sites(model, backend.params, backend.exclude,
-                                    backend.last_layer)
+                                    backend.last_layer, allow_incomplete=True)
         by_prefix = {tuple(s["param_path"]): s for s in sites}
-        return [_owning_site(name, by_prefix, sites)["name"]
-                for name, _ in named_leaves(backend.w)]
+        out = []
+        for name, _ in named_leaves(backend.w):
+            site = _owning_site(name, by_prefix, sites, strict=False)
+            out.append(None if site is None else site["name"])
+        return out
 
     def fn(params, X, y):
         backend = GGNBackend(model, params, likelihood,

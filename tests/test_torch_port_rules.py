@@ -71,7 +71,7 @@ def _graph():
 
 def test_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
     from laplace_gnn_torch import resolve_device
-    from laplace_gnn_torch.models import GCN, STEGCN
+    from laplace_gnn_torch.models import GAT, GCN, STEGCN
     from laplace_gnn_torch.training import marglik_optimization
     from laplace_gnn_torch.utils.pytree import params_from_numpy
 
@@ -84,6 +84,9 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
         GCN(4, 8, 3, 2, X, adj)
     with pytest.raises(RuntimeError):
         params_from_numpy({"adj": adj})
+    with pytest.raises(RuntimeError):
+        GAT(4, 8, 4, 2, X, adj, heads=2, attention_impl="flash")
+    GAT(4, 8, 4, 2, X, adj, heads=2, attention_impl="flash", device="cpu")
     m = STEGCN(4, 8, 3, 2, X, adj, fused=True, device="cpu")
     with pytest.raises(RuntimeError):
         marglik_optimization(m, m.params(), np.arange(5), np.zeros(5, int),
@@ -97,3 +100,19 @@ def test_kernel_wrapper_rejects_mixed_devices():
     t = torch.zeros(4, 2, device="meta")
     with pytest.raises(ValueError):
         core(a, t)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd"])
+def test_flash_wrappers_reject_mixed_devices(wrapper):
+    from laplace_gnn_torch.ops import flash_attention as fa
+    n, H, F = 6, 2, 3
+    a_src, a_dst = torch.zeros(n, H), torch.zeros(n, H, device="meta")
+    adj, h = torch.ones(n, n), torch.zeros(n, H, F)
+    args = (a_src, a_dst, adj, h)
+    if wrapper == "flash_bwd":
+        args += (torch.zeros(n, H, F), torch.zeros(n, H, F),
+                 torch.zeros(H, n), torch.ones(H, n))
+    before = getattr(fa, wrapper).launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        getattr(fa, wrapper)(*args)
+    assert getattr(fa, wrapper).launches == before
