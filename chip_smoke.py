@@ -35,7 +35,30 @@ Phases, each fatal:
      -log marglik evaluations (0: they run the ``jvp_safe`` clone) and
      validation forwards; time one -log marglik evaluation and its peak
      memory; check one train step's weight gradients and the -log marglik
-     on a small graph against the float64 CPU path.
+     on a small graph against the float64 CPU path;
+  7. hold the blocked ``matmul`` kernel against its plain version at the
+     shapes of the product it was written for ((2708, 2708) @ (2708, 64)
+     and (16384, 16384) @ (16384, 64), f32 and bf16), of the slice's
+     largest product (``KronDecomposed._bmm`` on layer 0 for 542 x 7 rows:
+     (242816, 1433) @ (1433, 1433), f32) and a ragged case, timed beside
+     the plain version and ``torch.matmul`` (cuBLAS) with its bound;
+  8. evaluate the phase-3 STE-GCN (fused kernel path) as the experiment
+     experiment does after training: ``fit_laplace``, the log marglik,
+     ``evaluate_map``, the probit GLM predictive on 1000 further nodes (its
+     vmapped Jacobians and the functional variance also timed apart) and
+     ``mc_eval(pred_type="nn", n_samples=100)``, each with its time, peak
+     memory and ``core_spmm`` launches (counts set to 0 just before each
+     part); check the log marglik and probit probabilities on a small
+     graph against the float64 CPU path;
+  9. the same for the phase-6 GAT at N = 2708: ``fit_laplace`` (0 flash
+     launches), the log marglik, ``mc_eval(pred_type="nn", n_samples=20)``
+     (40 ``flash_fwd`` launches) and the probit GLM predictive on 100
+     nodes;
+ 10. run the experiment entry point (``training/experiment.py::main``) as
+     a user does, on a Cora-shaped synthetic npz dataset with a k-NN initial
+     graph and the Cora STE-GCN config cut to 6 epochs (``fused=False``,
+     as the JAX package runs it: no kernel launches), and check that it
+     writes its stats.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -85,6 +108,14 @@ def card_info() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def card_state() -> str:
+    """SM clock, power draw and temperature, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def card_peaks(name: str):
@@ -336,9 +367,10 @@ def phase_trainer(torch, np, card):
         raise AssertionError(f"kernel path vs composed path: rel {rel}")
     print(f"full-width output vs composed path: relative error {rel:.3e}",
           flush=True)
-    return {"run_s": run_s, "run_launches": run_launches,
-            "run_launches_by_step": by_step, "steps": steps,
-            "losses": losses, "neg_margliks": nms, "output_rel_err": rel}
+    return ({"run_s": run_s, "run_launches": run_launches,
+             "run_launches_by_step": by_step, "steps": steps,
+             "losses": losses, "neg_margliks": nms, "output_rel_err": rel},
+            (model, final, y, perm))
 
 
 def phase_small_reference(torch, np):
@@ -656,12 +688,13 @@ def phase_gat_trainer(torch, np, fa, card):
           f"clock), peak memory {peak_gb:.3f} GB above the "
           f"{base / 1e9:.3f} GB already allocated, value {float(nm):.6f}  "
           f"[{card}]", flush=True)
-    del model, progs, X, adj
+    del progs
     torch.cuda.empty_cache()
-    return {"run_s": run_s, "run_launches": launches,
-            "run_launches_by_step": by, "losses": losses,
-            "val_losses": val_losses, "neg_margliks": nms,
-            "neg_marglik_eval_s": eval_s, "neg_marglik_peak_gb": peak_gb}
+    return ({"run_s": run_s, "run_launches": launches,
+             "run_launches_by_step": by, "losses": losses,
+             "val_losses": val_losses, "neg_margliks": nms,
+             "neg_marglik_eval_s": eval_s, "neg_marglik_peak_gb": peak_gb},
+            (model, final, y, perm))
 
 
 def phase_gat_small_reference(torch, np):
@@ -709,6 +742,284 @@ def phase_gat_small_reference(torch, np):
     return {"grad_rel": rel, "neg_marglik": vals, "neg_marglik_rel": nm_rel}
 
 
+# the blocked matmul at the shapes of the product it was written for (the
+# dense aggregation adj @ s), of the slice's largest product
+# (KronDecomposed._bmm on layer 0 for 542 test nodes x 7 classes) and one
+# ragged case: (case, M, K, N, dtype)
+MM_CASES = [("adj@s", 2708, 2708, 64, "float32"),
+            ("adj@s", 2708, 2708, 64, "bfloat16"),
+            ("adj@s", 16384, 16384, 64, "float32"),
+            ("adj@s", 16384, 16384, 64, "bfloat16"),
+            ("kron_bmm", 542 * N_CLASS * HIDDEN, N_FEAT, N_FEAT, "float32"),
+            ("ragged", 300, 200, 70, "float32"),
+            ("ragged", 300, 200, 70, "bfloat16")]
+N_TEST = 1000               # Cora's test-set size, for the GLM predictive
+JAC_CHUNK = 250             # test nodes per vmapped Jacobian pass
+GAT_GLM_NODES, GAT_JAC_CHUNK = 100, 4
+
+
+def phase_matmul(torch, mm_mod, peaks):
+    """The matmul kernel against its plain version, timed beside the plain
+    version and one torch.matmul (cuBLAS, TF32 off). Tolerance: f32 within
+    1e-5 x max(|a| @ |b|) (another summation order); bf16 outputs within
+    2^-7 x the same (one bf16 rounding of the f32 sum). ``launches`` counts
+    the checking calls (one per case); no path of the package calls the
+    kernel."""
+    bw, bf16_peak = peaks
+    mm = mm_mod.matmul
+    rows, checks = [], 0
+    for case, M, K, N, dt in MM_CASES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device="cuda").manual_seed(M + N)
+        a = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+        b = torch.randn(K, N, generator=g, device="cuda").to(dtype)
+        before = mm.launches
+        got = mm(a, b)
+        checks += mm.launches - before
+        want = mm_mod.matmul_reference(a, b)
+        scale = float((a.float().abs() @ b.float().abs()).max())
+        err = float((got.float() - want.float()).abs().max())
+        tol = (1e-5 if dt == "float32" else 2.0 ** -7) * scale
+        if not (bool(torch.isfinite(got).all()) and err <= tol):
+            raise AssertionError(f"matmul {case} {M}x{K}x{N} {dt}: max err "
+                                 f"{err} > {tol}")
+        nbytes = (M * K + K * N + M * N) * a.element_size()
+        ops = 2 * M * N * K
+        t_b = nbytes / bw
+        t_o = ops / (FP32_PEAK if dt == "float32" else bf16_peak)
+        reps = 10 if ops > 1e11 else 20
+        rows.append({
+            "case": case, "m": M, "k": K, "n": N, "dtype": dt,
+            "ms": cold_ms(torch, lambda: mm(a, b), reps),
+            "plain_ms": cold_ms(torch, lambda: mm_mod.matmul_reference(a, b),
+                                reps),
+            "library_ms": cold_ms(torch, lambda: torch.matmul(a, b), reps),
+            "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "max_abs_err": err, "tol": tol,
+            "card_after": card_state()})
+        print("matmul " + json.dumps(rows[-1]), flush=True)
+        del a, b, got, want
+        torch.cuda.empty_cache()
+    return rows, checks
+
+
+def timed(torch, fn):
+    """(fn(), host seconds, peak GB above what was allocated before); the
+    work ends in a synchronize."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def run_parts(torch, kernels, card, label):
+    """A ``part(name, fn, expect)`` runner: each part is timed alone with
+    every kernel's count set to 0 just before and read just after; expect
+    maps a kernel name to the launches it must show (None: at least one)."""
+    parts = {}
+
+    def part(name, fn, expect):
+        for k in kernels:
+            k.launches = 0
+        out, secs, gb = timed(torch, fn)
+        launches = {k.name: k.launches for k in kernels}
+        for kname, want in expect.items():
+            got = launches[kname]
+            if (want is None and got == 0) or (want is not None
+                                               and got != want):
+                raise AssertionError(f"{label} {name}: {got} {kname} "
+                                     f"launches, expected {want or '> 0'}")
+        parts[name] = {"s": secs, "peak_gb": gb, "launches": launches}
+        print(f"{label} {name}: {secs:.4f} s (host clock), peak {gb:.3f} GB "
+              f"above the allocated, launches {launches}  [{card}]",
+              flush=True)
+        return out
+    return part, parts
+
+
+def _check_probs(np, probs, n):
+    p = probs.detach().cpu().numpy()
+    if p.shape != (n, N_CLASS) or not np.all(np.isfinite(p)) or \
+            np.abs(p.sum(-1) - 1).max() > 1e-4:
+        raise AssertionError(f"predictive probabilities: shape {p.shape}, "
+                             f"row sums off by {np.abs(p.sum(-1) - 1).max()}")
+
+
+def phase_laplace_stegcn(torch, np, state, kernels, card):
+    """Post-hoc Kron Laplace evaluation of the phase-3 STE-GCN (fused
+    kernel path) at Cora's width: each part timed, its peak memory and its
+    launches counted."""
+    from laplace_gnn_torch.laplace.predictive import probit_predictive
+    from laplace_gnn_torch.training.evaluate import (_metrics, evaluate_map,
+                                                     evaluate_predictive)
+    from laplace_gnn_torch.training.marglik_gnn import fit_laplace, mc_eval
+    model, params, y, perm = state
+    tr = perm[:N_TRAIN]
+    te = perm[N_TRAIN + N_VAL:N_TRAIN + N_VAL + N_TEST]
+    idx = torch.as_tensor(te, device="cuda")
+    part, parts = run_parts(torch, kernels, card, "STE-GCN Laplace")
+    chunks = math.ceil(N_TEST / JAC_CHUNK)
+    zero = {"matmul": 0}
+    la = part("fit_laplace", lambda: fit_laplace(
+        model, params, tr, y[tr],
+        backend_kwargs={"jac_chunk_size": JAC_CHUNK}),
+        {"core_spmm": None, **zero})
+    lml = float(part("log_marglik", la.log_marginal_likelihood,
+                     {"core_spmm": 0, **zero}))
+    q_map = part("evaluate_map", lambda: evaluate_map(model, params, te,
+                                                      y[te]),
+                 {"core_spmm": 2, **zero})
+    # the GLM predictive's two stages apart, then the call as a user makes it
+    Js, f_mu = part("jacobians", lambda: la.backend.jacobians(idx),
+                    {"core_spmm": 2 + 2 * chunks, **zero})
+    f_var = part("functional_variance", lambda: la.functional_variance(Js),
+                 {"core_spmm": 0, **zero})
+    del Js
+    probs = probit_predictive(f_mu, f_var)
+    _check_probs(np, probs, N_TEST)
+    q_bayes = part("evaluate_predictive_probit", lambda: evaluate_predictive(
+        la, te, y[te], link_approx="probit"),
+        {"core_spmm": 2 + 2 * chunks, **zero})
+    staged = _metrics(probs.detach().cpu().numpy(), y[te])
+    if abs(staged["nll"] - q_bayes["nll"]) > 1e-5 * abs(q_bayes["nll"]):
+        raise AssertionError(f"probit NLL {q_bayes['nll']} vs the staged "
+                             f"{staged['nll']}")
+    mc = part("mc_eval_nn_100", lambda: mc_eval(la, te, y[te],
+                                                pred_type="nn",
+                                                n_samples=100),
+              {"core_spmm": 2 * 100, **zero})
+    vals = [lml, *q_map.values(), *q_bayes.values(), *mc]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"non-finite evaluation: {vals}")
+    print(f"STE-GCN Laplace: log marglik {lml:.4f}; MAP {q_map}; probit "
+          f"{q_bayes}; nn-MC (loss, acc %) {mc}; P = {la.n_params}, "
+          f"J = {N_TEST} x {N_CLASS} x {la.n_params} f32  [{card}]",
+          flush=True)
+    n_params = la.n_params
+    del la, f_var
+    torch.cuda.empty_cache()
+    return {"parts": parts, "log_marglik": lml, "map": q_map,
+            "bayes_probit": q_bayes, "mc_nn": mc, "n_params": n_params}
+
+
+def phase_laplace_small_reference(torch, np):
+    """fit_laplace, the log marglik and the probit probabilities on a small
+    graph: the kernel path in float32 on the card against the float64 CPU
+    path (which the CPU tests hold to the JAX package). The kernel rounds
+    its operands to bf16, so both are held at 1e-2."""
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.training.marglik_gnn import fit_laplace
+    rng = np.random.default_rng(8)
+    n, f = 96, 24
+    X = rng.standard_normal((n, f))
+    adj = (rng.random((n, n)) < 0.08).astype(float)
+    adj = np.minimum(adj + adj.T, 1.0)
+    np.fill_diagonal(adj, 0.0)
+    y = rng.integers(0, N_CLASS, n)
+    vals, probs = {}, {}
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        m = STEGCN(f, 16, N_CLASS, 2, X, adj, dropout_p=0.0, fused=True,
+                   symmetric=True, device=dev, dtype=dt,
+                   generator=torch.Generator().manual_seed(0))
+        la = fit_laplace(m, m.params(), np.arange(40), y[:40])
+        vals[dev] = float(la.log_marginal_likelihood())
+        probs[dev] = la(torch.arange(40, n, device=dev),
+                        link_approx="probit").detach().double().cpu()
+    rel = abs(vals["cuda"] - vals["cpu"]) / abs(vals["cpu"])
+    perr = float((probs["cuda"] - probs["cpu"]).abs().max())
+    if not math.isfinite(vals["cuda"]) or rel > 1e-2 or perr > 1e-2:
+        raise AssertionError(f"small Laplace: {vals}, probit err {perr}")
+    print(f"small-graph Laplace: log marglik card {vals['cuda']:.6f} vs CPU "
+          f"f64 {vals['cpu']:.6f} (relative {rel:.2e}); probit "
+          f"probabilities max abs diff {perr:.2e}", flush=True)
+    return {"log_marglik": vals, "log_marglik_rel": rel, "probit_err": perr}
+
+
+def phase_laplace_gat(torch, np, state, kernels, card):
+    """Post-hoc Kron Laplace evaluation of the phase-6 GAT at N = 2708: the
+    fit and the GLM predictive run on the jvp_safe clone (no flash launch),
+    the nn predictive's samples through the flash forward (2 per sample)."""
+    from laplace_gnn_torch.training.evaluate import evaluate_predictive
+    from laplace_gnn_torch.training.marglik_gnn import fit_laplace, mc_eval
+    model, params, y, perm = state
+    n = GAT_N_TRAIN
+    tr = perm[:N_TRAIN]
+    rest = perm[N_TRAIN + N_VAL:]
+    te = rest[:GAT_GLM_NODES]
+    part, parts = run_parts(torch, kernels, card, "GAT Laplace")
+    none = {"flash_fwd": 0, "flash_bwd": 0, "matmul": 0}
+    la = part("fit_laplace", lambda: fit_laplace(
+        model, params, tr, y[tr],
+        backend_kwargs={"jac_chunk_size": GAT_JAC_CHUNK}), none)
+    lml = float(part("log_marglik", la.log_marginal_likelihood, none))
+    mc = part("mc_eval_nn_20", lambda: mc_eval(la, rest, y[rest],
+                                              pred_type="nn", n_samples=20),
+              {"flash_fwd": 2 * 20, "flash_bwd": 0, "matmul": 0})
+    q = part(f"evaluate_predictive_probit_{GAT_GLM_NODES}",
+             lambda: evaluate_predictive(la, te, y[te],
+                                         link_approx="probit"), none)
+    vals = [lml, *mc, *q.values()]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"non-finite GAT evaluation: {vals}")
+    print(f"GAT Laplace at N={n}: log marglik {lml:.4f}; nn-MC over "
+          f"{len(rest)} nodes (loss, acc %) {mc}; probit on {len(te)} nodes "
+          f"{q}; P = {la.n_params}  [{card}]", flush=True)
+    del la
+    torch.cuda.empty_cache()
+    return {"parts": parts, "log_marglik": lml, "mc_nn": mc,
+            "bayes_probit": q}
+
+
+def phase_experiment(torch, np, kernels, card):
+    """The experiment entry point as a user runs it, on a Cora-shaped
+    synthetic graph written as an npz dataset, with the Cora section of
+    configs/knng/stegcn_config.yaml cut to 6 epochs. It runs fused=False,
+    as the JAX package does, so no kernel launches."""
+    from laplace_gnn_torch.graph.data import adj_to_edge_index
+    from laplace_gnn_torch.training.experiment import main as run_main
+    d = os.path.join(ROOT, "chiprun_out", "experiment")
+    os.makedirs(d, exist_ok=True)
+    X, adj, y = make_graph(np, np.random.default_rng(7))
+    np.savez(os.path.join(d, "coralike.npz"), x=X, y=y,
+             edge_index=adj_to_edge_index(adj))
+    os.environ["LAPLACE_GNN_DATA"] = d
+    argv = ["--dataset", "coralike", "--model_type", "stegcn",
+            "--init_graph", "knng", "--knng_k", "3",
+            "--overwrite_config", "true", "--n_data_rand_splits", "1",
+            "--hidden_channels", str(HIDDEN), "--lr", "1e-3",
+            "--lr_adj", "0.8", "--momentum_adj", "0.9",
+            "--weight_decay", "5e-5", "--weight_decay_adj", "5e-4",
+            "--dropout_p", "0.5", "--ste_thresh", "0.5",
+            "--symmetric", "true", "--grad_norm", "true", "--res", "false",
+            "--norm", "none", "--n_epochs", "6", "--n_epochs_burnin", "2",
+            "--marglik_frequency", "2", "--n_hypersteps", "2",
+            "--base_out_dir", os.path.join(d, "results")]
+    for k in kernels:
+        k.launches = 0
+    out, secs, gb = timed(torch, lambda: run_main(argv, device="cuda"))
+    launches = {k.name: k.launches for k in kernels}
+    if any(launches.values()):
+        raise AssertionError(f"the fused=False experiment launched {launches}")
+    stats_path = os.path.join(d, "results", "coralike", "stats.pkl")
+    stats = out["results"][0]["stats"]
+    flat = [v for crit in stats.values() for vs in crit.values()
+            for split in vs for v in split]
+    if not (os.path.exists(stats_path) and stats["marglik"] and flat
+            and all(math.isfinite(float(v)) for v in flat)):
+        raise AssertionError(f"experiment stats: {stats}")
+    print(f"experiment (coralike, stegcn, knng k=3, 6 epochs, 1 split): "
+          f"{secs:.3f} s (host clock), peak {gb:.3f} GB, launches "
+          f"{launches}; stats.pkl written: {os.path.exists(stats_path)}; "
+          f"summary {out['summary']}  [{card}]", flush=True)
+    return {"s": secs, "peak_gb": gb, "summary": out["summary"],
+            "stats": stats}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -721,6 +1032,7 @@ def main() -> int:
     from laplace_gnn_torch.ops import cuda_build
     from laplace_gnn_torch.ops import flash_attention as fa
     from laplace_gnn_torch.ops import fused_spmm as fs
+    from laplace_gnn_torch.ops import matmul as mm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -752,14 +1064,24 @@ def main() -> int:
     for r in rows:
         print("core_spmm " + json.dumps(r), flush=True)
     small = phase_small_reference(torch, np)
-    run = phase_trainer(torch, np, card)
+    run, stegcn_state = phase_trainer(torch, np, card)
 
     flash_rows, flash_err = phase_flash_kernels(torch, np, fa, peaks[0])
     for r in flash_rows:
         print(f"{r['kernel']} " + json.dumps(r), flush=True)
     gat_step = phase_gat_step(torch, card)
-    gat_run = phase_gat_trainer(torch, np, fa, card)
+    gat_run, gat_state = phase_gat_trainer(torch, np, fa, card)
     gat_small = phase_gat_small_reference(torch, np)
+
+    mm_rows, mm_checks = phase_matmul(torch, mm, peaks)
+    counted = (fs.core, fa.flash_fwd, fa.flash_bwd, mm.matmul)
+    laplace = phase_laplace_stegcn(torch, np, stegcn_state, counted, card)
+    del stegcn_state
+    laplace_small = phase_laplace_small_reference(torch, np)
+    gat_laplace = phase_laplace_gat(torch, np, gat_state, counted, card)
+    del gat_state
+    torch.cuda.empty_cache()
+    experiment = phase_experiment(torch, np, counted, card)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -784,12 +1106,28 @@ def main() -> int:
             "max_abs_err": flash_err[kern.name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    # the product matmul.py exists for, at Cora's size: (2708, 2708) @
+    # (2708, 64) in f32
+    r = mm_rows[0]
+    kernels.append({
+        "name": mm.matmul.name, "route": "cuda", "source": mm.matmul.source,
+        "replaces": "laplace_gnn_tpu/ops/pallas_matmul.py:21",
+        "launches": mm_checks,
+        "note": "on no path of the package, as in JAX (0 launches in "
+                "phases 8-10); launches are phase 7's checking calls",
+        "max_abs_err": max(x["max_abs_err"] for x in mm_rows
+                           if x["dtype"] == "float32"),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "peaks": peak_name,
                    "core_spmm": rows, "trainer": run, "small": small,
                    "flash": flash_rows, "gat_step": gat_step,
                    "gat_trainer": gat_run, "gat_small": gat_small,
-                   "kernels": kernels}, f, indent=1)
+                   "matmul": mm_rows, "laplace_stegcn": laplace,
+                   "laplace_small": laplace_small,
+                   "laplace_gat": gat_laplace, "experiment": experiment,
+                   "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,4 @@
-from .kron import Kron
-
-__all__ = ["Kron"]
+"""Laplace approximations. The package imports nothing itself (the KFAC
+code imports ``laplace.kron`` while the classes here import the curvature
+backends); import the modules: ``laplace.dispatch.Laplace``,
+``laplace.flavors.KronLaplace``, ``laplace.kron.Kron``."""

@@ -1,0 +1,115 @@
+"""Parametric Laplace flavours (counterpart of
+``laplace_gnn_tpu/laplace/flavors.py``; ``KronLaplace`` so far — the full,
+diagonal and low-rank flavours wait with ROADMAP Queue 1 item 14)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..utils.data import dataset_size
+from .base import _WAITS, ParametricLaplace
+from .kron import Kron, KronDecomposed
+
+
+class KronLaplace(ParametricLaplace):
+    """Kronecker-factored posterior precision.
+
+    ``H`` holds the eigendecomposed factors after fit; the raw accumulated
+    factors stay in ``H_facs`` for online updates."""
+
+    _key = ("all", "kron")
+
+    def __init__(self, model, params, likelihood, damping: bool = False,
+                 **kwargs):
+        self.damping = damping
+        self.H_facs: Optional[Kron] = None
+        super().__init__(model, params, likelihood, **kwargs)
+
+    def _init_H(self) -> None:
+        # the first batch's factors define the block structure, which keeps
+        # the exact-diagonal blocks of non-Linear posterior parameters (GAT
+        # attention vectors) where zero [B, A] factors would not
+        self.H = None
+
+    def _check_H_init(self):
+        if getattr(self, "H_facs", None) is None:
+            raise AttributeError("Laplace not fitted. Run fit() first.")
+
+    def _curv_closure(self, X, y, N: int, batch_idx: int = 0):
+        # detached: the tap perturbations of the KFAC pass would otherwise
+        # keep the whole forward graph alive behind the loss and A factors
+        loss, kron = self.backend.kron(X, y, N=N)
+        return loss.detach(), Kron([[f.detach() for f in g]
+                                    for g in kron.kfacs])
+
+    @staticmethod
+    def _rescale_factors(kron: Kron, factor) -> Kron:
+        """Scale only the A factor of two-factor groups."""
+        return Kron([[g[0], g[1] * factor] if len(g) == 2 else [g[0]]
+                     for g in kron.kfacs])
+
+    def fit(self, train_loader, override: bool = True) -> None:
+        if override:
+            self.H_facs = None
+        if self.H_facs is not None:
+            n_data_old = self.n_data
+            n_data_new = dataset_size(train_loader)
+            self._init_H()
+            self.H_facs = self._rescale_factors(
+                self.H_facs, n_data_old / (n_data_old + n_data_new))
+
+        super().fit(train_loader, override=override)
+
+        if self.H_facs is None:
+            self.H_facs = self.H
+        else:
+            self.H = self._rescale_factors(
+                self.H, n_data_new / (n_data_new + n_data_old))
+            self.H_facs = self.H_facs + self.H
+        # decompose for inference; keep H_facs for further accumulation
+        self.H = self.H_facs.decompose(damping=self.damping)
+
+    @property
+    def posterior_precision(self) -> KronDecomposed:
+        self._check_H_init()
+        return self.H * self._H_factor + self.prior_precision
+
+    @property
+    def log_det_posterior_precision(self) -> torch.Tensor:
+        if isinstance(self.H, Kron):  # not decomposed: the prior alone
+            return torch.sum(torch.log(self.prior_precision_diag))
+        return self.posterior_precision.logdet()
+
+    def square_norm(self, value):
+        delta = value - self.mean
+        if isinstance(self.H, Kron):
+            return (delta * self.prior_precision_diag) @ delta
+        return delta @ self.posterior_precision.bmm(delta, exponent=1)
+
+    def functional_variance(self, Js):
+        return self.posterior_precision.inv_square_form(Js)
+
+    def functional_covariance(self, Js):
+        n, c, p = Js.shape
+        return self.posterior_precision.inv_square_form(
+            Js.reshape(1, n * c, p))[0]
+
+    def sample(self, n_samples: int = 100,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        generator = generator if generator is not None else self.generator
+        eps = torch.randn((n_samples, self.n_params), generator=generator,
+                          dtype=self.mean.dtype, device=self.mean.device)
+        samples = self.posterior_precision.bmm(eps, exponent=-0.5)
+        return self.mean[None, :] + samples.reshape(n_samples, self.n_params)
+
+    @ParametricLaplace.prior_precision.setter
+    def prior_precision(self, prior_precision) -> None:
+        ParametricLaplace.prior_precision.fset(self, prior_precision)
+        if self._prior_precision.shape[0] not in (1, self.n_layers):
+            raise ValueError("Prior precision for Kron either scalar or "
+                             "per-layer.")
+
+    def _pure_log_marglik(self, prior_precision, sigma_noise):
+        raise NotImplementedError(f"_pure_log_marglik {_WAITS}")

@@ -90,24 +90,16 @@ class BaseGNN(nn.Module):
         self.norms = [make_norm(norm, hidden_channels, name=f"norms.{i}")
                       for i in range(num_layers - 1)]
 
+        # (in, out) channels of each conv, kept so init() can draw anew
+        widths = [hidden_channels] * (num_layers - 1)
+        if out_channels is not None:
+            widths.append(out_channels)
+        self._conv_specs = list(zip([in_channels] + widths[:-1], widths))
+        self._conv_kwargs = dict(kwargs, dtype=dtype)
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(0)
-        convs = []
-        in_ch = in_channels
-        if num_layers > 1:
-            convs.append(self.init_conv(in_ch, hidden_channels, name="convs.0",
-                                        generator=gen, dtype=dtype, **kwargs))
-            in_ch = hidden_channels
-        for i in range(num_layers - 2):
-            convs.append(self.init_conv(in_ch, hidden_channels,
-                                        name=f"convs.{i + 1}", generator=gen,
-                                        dtype=dtype, **kwargs))
-        if out_channels is not None:
-            convs.append(self.init_conv(in_ch, out_channels,
-                                        name=f"convs.{len(convs)}",
-                                        generator=gen, dtype=dtype, **kwargs))
         self.adj = nn.Parameter(init.clone())
-        self.convs = nn.ModuleList(convs).to(dev)
+        self.convs = self._draw_convs(gen).to(dev)
 
         # the first GCNConv consumes raw X, so its KFAC input covariance
         # X^T X / N is constant and the hyperstep caches its eigenvalues
@@ -123,10 +115,28 @@ class BaseGNN(nn.Module):
         """Effective adjacency (or fused aggregation operator)."""
         raise NotImplementedError
 
+    def _draw_convs(self, generator: torch.Generator) -> nn.ModuleList:
+        return nn.ModuleList([
+            self.init_conv(i, o, name=f"convs.{k}", generator=generator,
+                           **self._conv_kwargs)
+            for k, (i, o) in enumerate(self._conv_specs)])
+
     # --- params -----------------------------------------------------------
     def params(self) -> dict:
         """The model's own parameters as a flat dict in JAX tree order."""
         return dict(named_leaves(dict(self.named_parameters())))
+
+    def init(self, generator: Optional[torch.Generator] = None) -> dict:
+        """Fresh parameters drawn from ``generator`` (seeded with 0 unless
+        given) as the constructor draws them, with the initial adjacency;
+        the model's own parameters are left as they are (the JAX package's
+        ``init(key)``)."""
+        gen = generator if generator is not None else \
+            torch.Generator().manual_seed(0)
+        dev = self.adj.device
+        fresh = {f"convs.{name}": p.detach().to(dev) for name, p in
+                 self._draw_convs(gen).named_parameters()}
+        return dict(named_leaves({"adj": self.init_adj.clone(), **fresh}))
 
     def full_adj(self, params: dict) -> torch.Tensor:
         return params["adj"]

@@ -158,3 +158,23 @@ def _torch_dtype(dtype) -> Optional[torch.dtype]:
     if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
     return getattr(torch, str(dtype))
+
+
+class _Registry(dict):
+    """``MODEL_REGISTRY`` with the JAX package's keys: the ported models,
+    and the others, whose lookup raises naming their ROADMAP item."""
+
+    WAITING = ("lorastegcn", "graphsage", "stegraphsage", "attstegcn")
+
+    def __missing__(self, key):
+        if key in self.WAITING:
+            raise NotImplementedError(
+                f"model {key!r} is not ported yet (ROADMAP Queue 1 item 13); "
+                f"ported: {sorted(self)}")
+        raise KeyError(key)
+
+    def names(self) -> list:
+        return list(self) + list(self.WAITING)
+
+
+MODEL_REGISTRY = _Registry(gcn=GCN, stegcn=STEGCN, gat=GAT)

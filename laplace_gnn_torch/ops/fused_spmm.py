@@ -164,6 +164,21 @@ class _CoreFn(torch.autograd.Function):
             g_a = (g @ t.T if transpose else t @ g.T).to(adj.dtype)
         return g_a, g_t, None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, adj, t, threshold, binarize, transpose):
+        """A batch of t's is one call with the batch folded into the
+        feature axis: (B, N, d) -> (N, B * d). This is how the vmapped
+        Jacobian pullbacks (curvature/interface.py) launch the kernel once
+        per chunk, as JAX folds its vmapped pullback columns
+        (laplace_gnn_tpu/curvature/kfac.py:308-310)."""
+        if in_dims[0] is not None:
+            raise NotImplementedError("core: vmap over the adjacency")
+        tb = t.movedim(in_dims[1], 1)                    # (N, B, d)
+        n, b, d = tb.shape
+        out = _CoreFn.apply(adj, tb.reshape(n, b * d), threshold, binarize,
+                            transpose)
+        return out.reshape(n, b, d), 1
+
 
 def core_fn(adj, t, threshold=0.5, binarize=True, transpose=False):
     return _CoreFn.apply(adj, t, threshold, binarize, transpose)

@@ -8,6 +8,8 @@ at zero with ``torch.maximum`` rather than ``torch.clamp``: at an exact tie
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -43,6 +45,28 @@ def batched_eigvalsh(mats) -> list:
             for t, i in enumerate(idxs):
                 out[i] = lams[t]
     return out
+
+
+def normal_samples(mean: torch.Tensor, var: torch.Tensor, n_samples: int,
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Samples from batched Normals with diagonal or full covariance.
+
+    mean (B, K); var (B, K) diagonal or (B, K, K) full. The standard normal
+    draws ``eps`` (K, n_samples) come from ``generator``, or are passed in
+    (the same noise for both packages in a test). Returns
+    (n_samples, B, K)."""
+    B, K = mean.shape
+    if eps is None:
+        eps = torch.randn((K, n_samples), generator=generator,
+                          dtype=mean.dtype, device=mean.device)
+    if mean.shape == var.shape:                       # diagonal
+        scaled = torch.sqrt(var)[..., None] * eps[None]
+    elif var.shape == (B, K, K):                      # full covariance
+        scaled = torch.linalg.cholesky(var) @ eps[None]
+    else:
+        raise ValueError("Invalid input shapes.")
+    return torch.permute(mean[..., None] + scaled, (2, 0, 1))
 
 
 def batched_symeig(mats) -> list:

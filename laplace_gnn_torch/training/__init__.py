@@ -1,5 +1,5 @@
-from .marglik_gnn import (TrainingPrograms, make_neg_marglik_fn,
-                          marglik_optimization, mean_eval)
+from .marglik_gnn import (TrainingPrograms, fit_laplace, make_neg_marglik_fn,
+                          marglik_optimization, mc_eval, mean_eval)
 
-__all__ = ["TrainingPrograms", "make_neg_marglik_fn", "marglik_optimization",
-           "mean_eval"]
+__all__ = ["TrainingPrograms", "fit_laplace", "make_neg_marglik_fn",
+           "marglik_optimization", "mc_eval", "mean_eval"]

@@ -27,7 +27,9 @@ from ..curvature.losses import cross_entropy_sum, likelihood_factor
 from ..device import resolve_device
 from ..graph.data import adj_to_edge_index
 from ..graph.homophily import avg_local_homophilies, global_homophily
+from ..laplace.dispatch import Laplace
 from ..ops.linalg import batched_eigvalsh, clip_min0
+from ..utils.data import ArrayLoader
 from ..utils.pytree import named_leaves
 
 PATIENCE = 20
@@ -411,3 +413,36 @@ def mean_eval(model, params: dict, indices, labels):
         loss = float(cross_entropy_sum(f, labels) / labels.shape[0])
         acc = float(_accuracy(f, labels)) * 100
     return loss, acc
+
+
+def mc_eval(la, indices, labels, pred_type: str = "nn", n_samples: int = 100,
+            diagonal_output: bool = False):
+    """Bayesian predictive loss and accuracy (percent) on the given nodes,
+    with the MC link (``pred_type="nn"``: posterior weight samples through
+    ``la.model``)."""
+    dev = la.mean.device
+    p = la(_as_index(indices, dev), pred_type=pred_type, link_approx="mc",
+           n_samples=n_samples, diagonal_output=diagonal_output)
+    p = p.detach().cpu().numpy()
+    labels = np.asarray(labels.cpu() if isinstance(labels, torch.Tensor)
+                        else labels)
+    logp = np.log(np.clip(p, 1e-12, None))
+    loss = float(-np.mean(logp[np.arange(len(labels)), labels]))
+    acc = float(np.mean(np.argmax(p, axis=1) == labels)) * 100
+    return loss, acc
+
+
+def fit_laplace(model, params: dict, train_indices, train_labels,
+                subset_of_weights: str = "all",
+                hessian_structure: str = "kron", **kwargs):
+    """A fresh Laplace fit on the training nodes (one full batch, on the
+    device of ``params``). Models with non-Linear posterior parameters (GAT
+    attention vectors) get Kron blocks for their Linear sites and exact
+    curvature-diagonal blocks for the rest."""
+    dev = params["adj"].device
+    la = Laplace(model, params, "classification",
+                 subset_of_weights=subset_of_weights,
+                 hessian_structure=hessian_structure, **kwargs)
+    la.fit(ArrayLoader(_as_index(train_indices, dev),
+                       _as_index(train_labels, dev), device=dev))
+    return la

@@ -41,6 +41,20 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _package_files(), ids=lambda p: p.name)
+def test_no_sklearn_or_yaml_at_module_level(path):
+    """The card has neither scikit-learn nor (maybe) PyYAML: the port reads
+    a config or makes two moons only inside the function that needs it."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.add(node.module.split(".")[0])
+    assert not top & {"sklearn", "yaml"}, path
+
+
 def test_no_jax_module_loaded_by_the_package():
     mods = ", ".join(
         "laplace_gnn_torch." + ".".join(p.relative_to(
@@ -91,6 +105,12 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
     with pytest.raises(RuntimeError):
         marglik_optimization(m, m.params(), np.arange(5), np.zeros(5, int),
                              n_epochs=1, verbose=False)
+    from laplace_gnn_torch.training.experiment import main
+    from laplace_gnn_torch.utils.data import ArrayLoader
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ArrayLoader(np.arange(5), np.zeros(5, int))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--dataset", "karate", "--model_type", "gcn"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
