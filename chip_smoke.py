@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``laplace_gnn_torch``) on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase: the port's proof
+    python3 chip_smoke.py --only matmul  # build + phase 7, for kernel work
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
@@ -40,8 +41,10 @@ Phases, each fatal:
      shapes of the product it was written for ((2708, 2708) @ (2708, 64)
      and (16384, 16384) @ (16384, 64), f32 and bf16), of the slice's
      largest product (``KronDecomposed._bmm`` on layer 0 for 542 x 7 rows:
-     (242816, 1433) @ (1433, 1433), f32) and a ragged case, timed beside
-     the plain version and ``torch.matmul`` (cuBLAS) with its bound;
+     (242816, 1433) @ (1433, 1433), f32), a ragged case and two alignment
+     cases (a view that starts one element into its buffer; K = 1433 in
+     bf16), timed beside the plain version and ``torch.matmul`` (cuBLAS)
+     with its bound, its split-K and its copy width;
   8. evaluate the phase-3 STE-GCN (fused kernel path) as the experiment
      experiment does after training: ``fit_laplace``, the log marglik,
      ``evaluate_map``, the probit GLM predictive on 1000 further nodes (its
@@ -61,7 +64,9 @@ Phases, each fatal:
      writes its stats.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
-as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
+as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
+it runs phases 1 (``matmul.cu`` alone) and 7, and its last line is
+``{"partial": ["matmul"]}``, never the ``ok`` line. Exits non-zero, with no
 result, when there is no CUDA device or the package is not beside it.
 Per-shape measurements also go to ``chiprun_out/chip_smoke.json``, and
 each source's ptxas report to ``chiprun_out/build_<source>.log``.
@@ -69,6 +74,8 @@ each source's ptxas report to ``chiprun_out/build_<source>.log``.
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import math
 import os
@@ -90,9 +97,12 @@ GAT_D, GAT_HIDDEN, GAT_HEADS, GAT_CLASSES = 64, 64, 8, 8
 GAT_DENSITY = 14e-4
 GAT_N_KERNEL, GAT_N_TRAIN = 16384, 2708
 FP32_PEAK = 67e12           # FLOP/s outside the tensor cores (H100 SXM)
+MATMUL_SIMT_MS = 0.2119     # the SIMT matmul before its redesign, (2708,
+                            # 2708) @ (2708, 64) f32 (PERF.md kernel table)
 ISO_ROW = 7                 # the row-shard case's target row without edges
 
-# (memory bytes/s, dense bf16 tensor-core FLOP/s) from NVIDIA's data sheets
+# (memory bytes/s, dense bf16 tensor-core FLOP/s) from NVIDIA's data sheets;
+# dense TF32 is half the bf16 rate on each
 CARD_PEAKS = {"H100 SXM": (3.35e12, 989e12), "H100 PCIe": (2.0e12, 756e12),
               "H100 NVL": (3.9e12, 835e12), "H200": (4.8e12, 989e12)}
 
@@ -132,21 +142,28 @@ def cold_ms(torch, fn, reps: int = 20) -> float:
     256 MB write that evicts the 50 MB L2 and a ~1 ms spin that keeps the
     card busy while the host enqueues ``fn`` (CUDA events around the call
     alone; without the spin a wrapper's Python work would be timed as idle
-    device time)."""
+    device time). Python's garbage collector is off during the launches:
+    late in the run a collection outlasts the spin and was timed as idle
+    device time (20x on one small product)."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     total = 0.0
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)          # clock cycles, ~1 ms
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        total += a.elapsed_time(b)
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(2_000_000)          # clock cycles, ~1 ms
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            total += a.elapsed_time(b)
+    finally:
+        gc.enable()
     return total / reps
 
 
@@ -745,14 +762,18 @@ def phase_gat_small_reference(torch, np):
 # the blocked matmul at the shapes of the product it was written for (the
 # dense aggregation adj @ s), of the slice's largest product
 # (KronDecomposed._bmm on layer 0 for 542 test nodes x 7 classes) and one
-# ragged case: (case, M, K, N, dtype)
+# ragged case, then two alignment cases: a view that starts one element
+# into its buffer (4-byte copies) and the layer-0 product X @ W at Cora's
+# width in bf16 (rows of 1433 bf16: 2-byte loads): (case, M, K, N, dtype)
 MM_CASES = [("adj@s", 2708, 2708, 64, "float32"),
             ("adj@s", 2708, 2708, 64, "bfloat16"),
             ("adj@s", 16384, 16384, 64, "float32"),
             ("adj@s", 16384, 16384, 64, "bfloat16"),
             ("kron_bmm", 542 * N_CLASS * HIDDEN, N_FEAT, N_FEAT, "float32"),
             ("ragged", 300, 200, 70, "float32"),
-            ("ragged", 300, 200, 70, "bfloat16")]
+            ("ragged", 300, 200, 70, "bfloat16"),
+            ("offset_view", 2708, 2708, 64, "float32"),
+            ("x@w", N_NODES, N_FEAT, HIDDEN, "bfloat16")]
 N_TEST = 1000               # Cora's test-set size, for the GLM predictive
 JAC_CHUNK = 250             # test nodes per vmapped Jacobian pass
 GAT_GLM_NODES, GAT_JAC_CHUNK = 100, 4
@@ -761,18 +782,25 @@ GAT_GLM_NODES, GAT_JAC_CHUNK = 100, 4
 def phase_matmul(torch, mm_mod, peaks):
     """The matmul kernel against its plain version, timed beside the plain
     version and one torch.matmul (cuBLAS, TF32 off). Tolerance: f32 within
-    1e-5 x max(|a| @ |b|) (another summation order); bf16 outputs within
-    2^-7 x the same (one bf16 rounding of the f32 sum). ``launches`` counts
-    the checking calls (one per case); no path of the package calls the
-    kernel."""
+    1e-5 x max(|a| @ |b|) (3xTF32 products and another summation order);
+    bf16 outputs within 2^-7 x the same (one bf16 rounding of the f32 sum).
+    Bound: bytes over the memory rate against 2MNK over the bf16 rate, or
+    3 x 2MNK over the TF32 rate for f32 (the kernel's three TF32 products).
+    ``launches`` counts the checking calls (one per case); no path of the
+    package calls the kernel."""
     bw, bf16_peak = peaks
     mm = mm_mod.matmul
     rows, checks = [], 0
     for case, M, K, N, dt in MM_CASES:
         dtype = getattr(torch, dt)
         g = torch.Generator(device="cuda").manual_seed(M + N)
-        a = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+        if case == "offset_view":       # one element into its buffer
+            a = torch.randn(M * K + 1, generator=g, device="cuda").to(
+                dtype)[1:].view(M, K)
+        else:
+            a = torch.randn(M, K, generator=g, device="cuda").to(dtype)
         b = torch.randn(K, N, generator=g, device="cuda").to(dtype)
+        p = mm_mod.plan(M, N, K, dtype, a.data_ptr(), b.data_ptr())
         before = mm.launches
         got = mm(a, b)
         checks += mm.launches - before
@@ -786,14 +814,18 @@ def phase_matmul(torch, mm_mod, peaks):
         nbytes = (M * K + K * N + M * N) * a.element_size()
         ops = 2 * M * N * K
         t_b = nbytes / bw
-        t_o = ops / (FP32_PEAK if dt == "float32" else bf16_peak)
+        t_o = (3 * ops / (bf16_peak / 2) if dt == "float32"
+               else ops / bf16_peak)
         reps = 10 if ops > 1e11 else 20
+        ms = cold_ms(torch, lambda: mm(a, b), reps)
+        lib = cold_ms(torch, lambda: torch.matmul(a, b), reps)
         rows.append({
             "case": case, "m": M, "k": K, "n": N, "dtype": dt,
-            "ms": cold_ms(torch, lambda: mm(a, b), reps),
+            "tile": p.tile[0], "stages": p.stages, "split": p.split,
+            "copy_bytes": p.vec, "ms": ms,
             "plain_ms": cold_ms(torch, lambda: mm_mod.matmul_reference(a, b),
                                 reps),
-            "library_ms": cold_ms(torch, lambda: torch.matmul(a, b), reps),
+            "library_ms": lib, "kernel_over_library": ms / lib,
             "bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "max_abs_err": err, "tol": tol,
@@ -1020,7 +1052,31 @@ def phase_experiment(torch, np, kernels, card):
             "stats": stats}
 
 
-def main() -> int:
+def build_kernels(cuda_build, out_dir, names=None):
+    """Phase 1: build the named sources (default all), one nvcc each, all at
+    once; each ptxas report goes to ``build_<source>.log``."""
+    t0 = time.perf_counter()
+    report = cuda_build.build(names)
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{sorted(report) or 'nothing (cached)'}", flush=True)
+    for name, (secs, log) in report.items():
+        # the full ptxas report goes to a file; one line per source here
+        with open(os.path.join(out_dir, f"build_{name}.log"), "w") as f:
+            f.write(log)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(x) for x in
+                     re.findall(r"(\d+) bytes spill stores", log))
+        print(f"  {name}: {secs:.1f} s, {len(regs)} kernels, "
+              f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
+              f"{spills} bytes of spill stores", flush=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", choices=["matmul"],
+                        help="build and run this kernel's phase alone; "
+                             "prints no ok line")
+    args = parser.parse_args(argv)
     import numpy as np
     import torch
 
@@ -1045,20 +1101,16 @@ def main() -> int:
 
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    t0 = time.perf_counter()
-    report = cuda_build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{sorted(report) or 'nothing (cached)'}", flush=True)
-    for name, (secs, log) in report.items():
-        # the full ptxas report goes to a file; one line per source here
-        with open(os.path.join(out_dir, f"build_{name}.log"), "w") as f:
-            f.write(log)
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-        spills = sum(int(x) for x in
-                     re.findall(r"(\d+) bytes spill stores", log))
-        print(f"  {name}: {secs:.1f} s, {len(regs)} kernels, "
-              f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
-              f"{spills} bytes of spill stores", flush=True)
+    if args.only == "matmul":
+        build_kernels(cuda_build, out_dir, ["matmul"])
+        mm_rows, _ = phase_matmul(torch, mm, peaks)
+        with open(os.path.join(out_dir, "chip_smoke_matmul.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "peaks": peak_name,
+                       "matmul": mm_rows}, f, indent=1)
+        print(card, flush=True)
+        print(json.dumps({"partial": ["matmul"]}), flush=True)
+        return 0
+    build_kernels(cuda_build, out_dir)
 
     rows, max_err = phase_kernel(torch, np, fs, peaks)
     for r in rows:
@@ -1115,6 +1167,7 @@ def main() -> int:
         "launches": mm_checks,
         "note": "on no path of the package, as in JAX (0 launches in "
                 "phases 8-10); launches are phase 7's checking calls",
+        "redesigned": "PR 5", "earlier_ms": MATMUL_SIMT_MS,
         "max_abs_err": max(x["max_abs_err"] for x in mm_rows
                            if x["dtype"] == "float32"),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

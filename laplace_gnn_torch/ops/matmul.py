@@ -3,8 +3,11 @@
 
 :data:`matmul` computes ``a (M, K) @ b (K, N)`` with an f32 accumulator and
 the output in ``a.dtype``. For CUDA tensors it launches the hand-written
-kernel ``csrc/matmul.cu`` (which replaces the Pallas ``_matmul_kernel``);
-for CPU tensors it takes the plain version :func:`matmul_reference`.
+kernel ``csrc/matmul.cu`` (which replaces the Pallas ``_matmul_kernel``):
+bf16 on ``mma.sync`` tensor cores, f32 as 3xTF32, fed by a ``cp.async``
+ring, with split-K for the skinny products. :func:`plan` chooses its tile,
+ring depth, split and copy width. For CPU tensors it takes the plain
+version :func:`matmul_reference`.
 
 No path of the package calls it, as no path of the JAX package calls the
 Pallas kernel: products that JAX leaves to XLA (``ops/spmm.py::aggregate``,
@@ -15,16 +18,32 @@ plain version and timed against cuBLAS by ``chip_smoke.py``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .cuda_build import load
 
-WIDE_TILE = 128           # the kernel's two output tiles: 128 x 128, 64 x 64
+# the kernel's output tiles (BM, BN): wide, skinny (N <= 64) and narrow
+WIDE, SKINNY, NARROW = (128, 128), (128, 64), (64, 64)
+STEP_BYTES = 128          # the kernel's K step: 128 bytes of a row of a
+N_SMS = 132               # streaming multiprocessors of an H100 SXM
+# blocks of each tile that an SM holds at once: its __launch_bounds__
+# minimum, for which its registers are capped and its ring is sized
+BLOCKS_PER_SM = {WIDE: 1, SKINNY: 2, NARROW: 3}
+# split-K fills one wave, at most two blocks an SM: more partial sums cost
+# more than the extra blocks gain on the small products of chip_smoke.py
+SPLIT_BLOCKS_PER_SM = 2
+MAX_SPLIT = 16
+MIN_STEPS_PER_SPLIT = 2   # K steps each split keeps at least
 
 
 def _round_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _cdiv(x: int, m: int) -> int:
+    return (x + m - 1) // m
 
 
 def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -34,8 +53,65 @@ def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(ct) @ b.to(ct)).to(a.dtype)
 
 
+class Plan(NamedTuple):
+    tile: tuple        # (BM, BN, BK); BK: 32 f32 or 64 bf16 (128 bytes)
+    stages: int        # depth of the shared-memory ring
+    split: int         # K ranges, one block each; > 1 adds a reduce kernel
+    vec: int           # copy width in bytes: 16, 8, 4 (cp.async) or 2
+    k_per_split: int   # a multiple of BK; the last range may be shorter
+
+
+def plan(M: int, N: int, K: int, dtype: torch.dtype, a_ptr: int, b_ptr: int,
+         bm: int = 512, bn: int = 256) -> Plan:
+    """How the kernel runs ``(M, K) @ (K, N)`` in ``dtype`` for operands at
+    the addresses ``a_ptr`` and ``b_ptr``.
+
+    - Tile: as the JAX signature's hints clamp, ``bm`` to ``round_to(M, 8)``
+      and ``bn`` to ``N``; with a clamped ``bm`` of at least 128, the
+      128 x 128 tile when the clamped ``bn`` is more than 64 and the
+      128 x 64 one otherwise; else the 64 x 64 tile. A 128-row tile whose
+      grid would not reach half the SMs gives way to the 64 x 64 one:
+      small products are latency-bound, and its four times more tiles need
+      fewer partial sums.
+    - Ring depth: the deepest of which ``BLOCKS_PER_SM`` blocks fit an SM:
+      3 stages of the 128 x 128 tile (105 KB), 4 of the others.
+    - Split: with output tiles for at most half of one wave (the blocks
+      that the card holds at once, ``BLOCKS_PER_SM`` x ``N_SMS``, but at
+      most ``SPLIT_BLOCKS_PER_SM`` an SM), K is split so the grid fills
+      that wave and no more, at most ``MAX_SPLIT`` ways and with at least
+      ``MIN_STEPS_PER_SPLIT`` K steps a split. A grid past one wave would
+      leave its last wave partly idle.
+    - Copy width: the largest of 16, 8, 4 bytes that divides both pointers
+      and both row lengths in bytes; 2 (register loads) for a bf16 row of
+      odd length."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"matmul: no kernel for {dtype}")
+    f32 = dtype == torch.float32
+    es = 4 if f32 else 2
+    tile = NARROW
+    if min(bm, _round_to(M, 8)) >= 128:
+        tile = WIDE if min(bn, N) > 64 else SKINNY
+        if _cdiv(M, tile[0]) * _cdiv(N, tile[1]) < N_SMS // 2:
+            tile = NARROW
+    align = a_ptr | b_ptr | (K * es) | (N * es)
+    vec = next(v for v in (16, 8, 4, 2) if align % v == 0)
+    if vec < es:
+        raise ValueError("matmul: f32 operands must be 4-byte aligned")
+    bk = STEP_BYTES // es
+    k_steps = _cdiv(K, bk)
+    tiles = _cdiv(M, tile[0]) * _cdiv(N, tile[1])
+    wave = min(BLOCKS_PER_SM[tile], SPLIT_BLOCKS_PER_SM) * N_SMS
+    split = max(1, min(wave // tiles, MAX_SPLIT,
+                       k_steps // MIN_STEPS_PER_SPLIT))
+    k_per_split = _cdiv(k_steps, split) * bk
+    return Plan(tile=(*tile, bk), stages=3 if tile == WIDE else 4,
+                split=_cdiv(K, k_per_split), vec=vec,
+                k_per_split=k_per_split)
+
+
 class MatmulKernel:
-    """Wrapper of the ``matmul`` CUDA kernel with a launch counter."""
+    """Wrapper of the ``matmul`` CUDA kernel with a launch counter (one per
+    call, also when a split-K reduce follows as a second device launch)."""
 
     name = "matmul"
     source = "laplace_gnn_torch/csrc/matmul.cu"
@@ -49,21 +125,18 @@ class MatmulKernel:
         if self._fn is None:
             fn = load("matmul").matmul_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                            + [ctypes.c_void_p])
             self._fn = fn
         return self._fn
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor, bm: int = 512,
                  bn: int = 256, bk: int = 512) -> torch.Tensor:
-        """``a @ b``. The block sizes are the JAX signature's tiling hints.
-        As there, ``bm`` is first clamped to ``round_to(M, 8)`` and ``bn`` to
-        ``N``; the kernel then takes its 128 x 128 output tile when the
-        clamped ``bm`` is at least 128 and the clamped ``bn`` more than 64,
-        and its 64 x 64 tile otherwise. ``bk`` is checked
-        and otherwise unused: the kernel's K step is fixed by its shared
-        memory staging (8 for the wide tile, 16 for the narrow one), and
-        ragged edges are guarded loads, not padding."""
+        """``a @ b``. The block sizes are the JAX signature's tiling hints:
+        ``bm`` and ``bn`` choose the kernel's tile (see :func:`plan`);
+        ``bk`` is checked and otherwise unused, since the kernel's K step
+        is fixed by its shared-memory ring and ragged edges are zero-filled
+        copies, not padding."""
         if min(bm, bn, bk) < 1:
             raise ValueError(f"matmul: block sizes must be >= 1, got "
                              f"{(bm, bn, bk)}")
@@ -91,12 +164,15 @@ class MatmulKernel:
             return out
         if K == 0:
             return out.zero_()
-        wide = (min(bm, _round_to(M, 8)) >= WIDE_TILE
-                and min(bn, N) > WIDE_TILE // 2)
+        p = plan(M, N, K, a.dtype, a.data_ptr(), b.data_ptr(), bm, bn)
+        ws = (torch.empty((p.split, M, N), dtype=torch.float32,
+                          device=a.device) if p.split > 1 else None)
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = self._entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
-                           K, int(a.dtype == torch.bfloat16), int(wide),
-                           stream)
+        rc = self._entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                           0 if ws is None else ws.data_ptr(), M, N, K,
+                           int(a.dtype == torch.bfloat16), p.tile[0],
+                           p.tile[1], p.stages, p.vec, p.split,
+                           p.k_per_split, stream)
         if rc != 0:
             raise RuntimeError(f"matmul launch failed with CUDA error {rc}")
         self.launches += 1
