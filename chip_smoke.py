@@ -44,7 +44,9 @@ Phases, each fatal:
      (242816, 1433) @ (1433, 1433), f32), a ragged case and two alignment
      cases (a view that starts one element into its buffer; K = 1433 in
      bf16), timed beside the plain version and ``torch.matmul`` (cuBLAS)
-     with its bound, its split-K and its copy width;
+     with its bound, its split-K and its copy width, and the 16384 shapes
+     again on the 64 x 64 tile (hint ``bm=64``); then check, untimed,
+     the edge cases K = 1, M < 16, a split-K product and a view ``a[1:]``;
   8. evaluate the phase-3 STE-GCN (fused kernel path) as the experiment
      experiment does after training: ``fit_laplace``, the log marglik,
      ``evaluate_map``, the probit GLM predictive on 1000 further nodes (its
@@ -97,8 +99,6 @@ GAT_D, GAT_HIDDEN, GAT_HEADS, GAT_CLASSES = 64, 64, 8, 8
 GAT_DENSITY = 14e-4
 GAT_N_KERNEL, GAT_N_TRAIN = 16384, 2708
 FP32_PEAK = 67e12           # FLOP/s outside the tensor cores (H100 SXM)
-MATMUL_SIMT_MS = 0.2119     # the SIMT matmul before its redesign, (2708,
-                            # 2708) @ (2708, 64) f32 (PERF.md kernel table)
 ISO_ROW = 7                 # the row-shard case's target row without edges
 
 # (memory bytes/s, dense bf16 tensor-core FLOP/s) from NVIDIA's data sheets;
@@ -764,64 +764,92 @@ def phase_gat_small_reference(torch, np):
 # (KronDecomposed._bmm on layer 0 for 542 test nodes x 7 classes) and one
 # ragged case, then two alignment cases: a view that starts one element
 # into its buffer (4-byte copies) and the layer-0 product X @ W at Cora's
-# width in bf16 (rows of 1433 bf16: 2-byte loads): (case, M, K, N, dtype)
-MM_CASES = [("adj@s", 2708, 2708, 64, "float32"),
-            ("adj@s", 2708, 2708, 64, "bfloat16"),
-            ("adj@s", 16384, 16384, 64, "float32"),
-            ("adj@s", 16384, 16384, 64, "bfloat16"),
-            ("kron_bmm", 542 * N_CLASS * HIDDEN, N_FEAT, N_FEAT, "float32"),
-            ("ragged", 300, 200, 70, "float32"),
-            ("ragged", 300, 200, 70, "bfloat16"),
-            ("offset_view", 2708, 2708, 64, "float32"),
-            ("x@w", N_NODES, N_FEAT, HIDDEN, "bfloat16")]
+# width in bf16 (rows of 1433 bf16: 2-byte loads); last the 16384 shapes
+# under the JAX signature's hint bm = 64, which takes the 64 x 64 tile in
+# place of the 128 x 64 one: (case, M, K, N, dtype, bm); timed
+MM_CASES = [("adj@s", 2708, 2708, 64, "float32", 512),
+            ("adj@s", 2708, 2708, 64, "bfloat16", 512),
+            ("adj@s", 16384, 16384, 64, "float32", 512),
+            ("adj@s", 16384, 16384, 64, "bfloat16", 512),
+            ("kron_bmm", 542 * N_CLASS * HIDDEN, N_FEAT, N_FEAT, "float32",
+             512),
+            ("ragged", 300, 200, 70, "float32", 512),
+            ("ragged", 300, 200, 70, "bfloat16", 512),
+            ("offset_view", 2708, 2708, 64, "float32", 512),
+            ("x@w", N_NODES, N_FEAT, HIDDEN, "bfloat16", 512),
+            ("adj@s", 16384, 16384, 64, "float32", 64),
+            ("adj@s", 16384, 16384, 64, "bfloat16", 64)]
+# edge cases checked against the plain version, not timed: K shorter than
+# one K step, fewer than 16 rows, a split-K product and a view a[1:] that
+# starts one row into its buffer: (case, M, K, N)
+MM_CHECKS = [("k=1", 70, 1, 70), ("m<16", 9, 77, 70),
+             ("split_k", 300, 2000, 64), ("row_view", 200, 300, 70)]
 N_TEST = 1000               # Cora's test-set size, for the GLM predictive
 JAC_CHUNK = 250             # test nodes per vmapped Jacobian pass
 GAT_GLM_NODES, GAT_JAC_CHUNK = 100, 4
 
 
+def _mm_operands(torch, case, M, K, N, dtype):
+    """a (M, K) and b (K, N) on the card, from a seed; a is a view into a
+    larger buffer for the two view cases."""
+    g = torch.Generator(device="cuda").manual_seed(M + N)
+    if case == "offset_view":           # one element into its buffer
+        a = torch.randn(M * K + 1, generator=g, device="cuda").to(
+            dtype)[1:].view(M, K)
+    elif case == "row_view":            # a[1:] of an (M + 1, K) matrix
+        a = torch.randn(M + 1, K, generator=g, device="cuda").to(dtype)[1:]
+    else:
+        a = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+    return a, torch.randn(K, N, generator=g, device="cuda").to(dtype)
+
+
+def _mm_check(torch, mm_mod, case, a, b, bm):
+    """(plan, max abs error, tolerance) of one kernel call against the plain
+    version; raises when it disagrees."""
+    (M, K), N = a.shape, b.shape[1]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    p = mm_mod.plan(M, N, K, a.dtype, a.data_ptr(), b.data_ptr(), sms, bm)
+    got = mm_mod.matmul(a, b, bm=bm)
+    want = mm_mod.matmul_reference(a, b)
+    scale = float((a.float().abs() @ b.float().abs()).max())
+    err = float((got.float() - want.float()).abs().max())
+    tol = (1e-5 if a.dtype == torch.float32 else 2.0 ** -7) * scale
+    if not (got.shape == (M, N) and bool(torch.isfinite(got).all())
+            and err <= tol):
+        raise AssertionError(f"matmul {case} {M}x{K}x{N} {a.dtype} bm={bm}: "
+                             f"max err {err} > {tol}")
+    return p, err, tol
+
+
 def phase_matmul(torch, mm_mod, peaks):
     """The matmul kernel against its plain version, timed beside the plain
-    version and one torch.matmul (cuBLAS, TF32 off). Tolerance: f32 within
-    1e-5 x max(|a| @ |b|) (3xTF32 products and another summation order);
-    bf16 outputs within 2^-7 x the same (one bf16 rounding of the f32 sum).
-    Bound: bytes over the memory rate against 2MNK over the bf16 rate, or
-    3 x 2MNK over the TF32 rate for f32 (the kernel's three TF32 products).
-    ``launches`` counts the checking calls (one per case); no path of the
-    package calls the kernel."""
+    version and one torch.matmul (cuBLAS, TF32 off), then the edge cases
+    checked alone. Tolerance: f32 within 1e-5 x max(|a| @ |b|) (3xTF32
+    products and another summation order); bf16 outputs within 2^-7 x the
+    same (one bf16 rounding of the f32 sum). Bound: bytes over the memory
+    rate against 2MNK over the bf16 rate, or 3 x 2MNK over the TF32 rate
+    for f32 (the kernel's three TF32 products). ``launches`` counts the
+    checking calls (one per case); no path of the package calls the
+    kernel."""
     bw, bf16_peak = peaks
     mm = mm_mod.matmul
-    rows, checks = [], 0
-    for case, M, K, N, dt in MM_CASES:
-        dtype = getattr(torch, dt)
-        g = torch.Generator(device="cuda").manual_seed(M + N)
-        if case == "offset_view":       # one element into its buffer
-            a = torch.randn(M * K + 1, generator=g, device="cuda").to(
-                dtype)[1:].view(M, K)
-        else:
-            a = torch.randn(M, K, generator=g, device="cuda").to(dtype)
-        b = torch.randn(K, N, generator=g, device="cuda").to(dtype)
-        p = mm_mod.plan(M, N, K, dtype, a.data_ptr(), b.data_ptr())
+    rows, checked, checks = [], [], 0
+    for case, M, K, N, dt, bm in MM_CASES:
+        a, b = _mm_operands(torch, case, M, K, N, getattr(torch, dt))
         before = mm.launches
-        got = mm(a, b)
+        p, err, tol = _mm_check(torch, mm_mod, case, a, b, bm)
         checks += mm.launches - before
-        want = mm_mod.matmul_reference(a, b)
-        scale = float((a.float().abs() @ b.float().abs()).max())
-        err = float((got.float() - want.float()).abs().max())
-        tol = (1e-5 if dt == "float32" else 2.0 ** -7) * scale
-        if not (bool(torch.isfinite(got).all()) and err <= tol):
-            raise AssertionError(f"matmul {case} {M}x{K}x{N} {dt}: max err "
-                                 f"{err} > {tol}")
         nbytes = (M * K + K * N + M * N) * a.element_size()
         ops = 2 * M * N * K
         t_b = nbytes / bw
         t_o = (3 * ops / (bf16_peak / 2) if dt == "float32"
                else ops / bf16_peak)
         reps = 10 if ops > 1e11 else 20
-        ms = cold_ms(torch, lambda: mm(a, b), reps)
+        ms = cold_ms(torch, lambda: mm(a, b, bm=bm), reps)
         lib = cold_ms(torch, lambda: torch.matmul(a, b), reps)
         rows.append({
-            "case": case, "m": M, "k": K, "n": N, "dtype": dt,
-            "tile": p.tile[0], "stages": p.stages, "split": p.split,
+            "case": case, "m": M, "k": K, "n": N, "dtype": dt, "bm": bm,
+            "tile": p.tile[:2], "stages": p.stages, "split": p.split,
             "copy_bytes": p.vec, "ms": ms,
             "plain_ms": cold_ms(torch, lambda: mm_mod.matmul_reference(a, b),
                                 reps),
@@ -831,9 +859,22 @@ def phase_matmul(torch, mm_mod, peaks):
             "max_abs_err": err, "tol": tol,
             "card_after": card_state()})
         print("matmul " + json.dumps(rows[-1]), flush=True)
-        del a, b, got, want
+        del a, b
         torch.cuda.empty_cache()
-    return rows, checks
+    for case, M, K, N in MM_CHECKS:
+        for dt in ("float32", "bfloat16"):
+            a, b = _mm_operands(torch, case, M, K, N, getattr(torch, dt))
+            before = mm.launches
+            p, err, tol = _mm_check(torch, mm_mod, case, a, b, 512)
+            checks += mm.launches - before
+            checked.append({"case": case, "m": M, "k": K, "n": N,
+                            "dtype": dt, "tile": p.tile[:2],
+                            "split": p.split, "copy_bytes": p.vec,
+                            "max_abs_err": err, "tol": tol})
+            print("matmul check " + json.dumps(checked[-1]), flush=True)
+    if not any(r["split"] > 1 for r in checked):
+        raise AssertionError("matmul: no checked edge case split K")
+    return rows + checked, checks
 
 
 def timed(torch, fn):
@@ -1167,7 +1208,7 @@ def main(argv=None) -> int:
         "launches": mm_checks,
         "note": "on no path of the package, as in JAX (0 launches in "
                 "phases 8-10); launches are phase 7's checking calls",
-        "redesigned": "PR 5", "earlier_ms": MATMUL_SIMT_MS,
+        "redesigned": "PR 5",
         "max_abs_err": max(x["max_abs_err"] for x in mm_rows
                            if x["dtype"] == "float32"),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -186,7 +186,9 @@ using Narrow = Tile<64, 64, 2, 2, 3>;    // 4 warps of 32 x 32
 // 64-byte pieces of many rows left bf16 at half the memory rate); row
 // strides padded for conflict-free fragment reads (see the header note);
 // the deepest ring of which MIN_BLOCKS fit an SM's 228 KB (1 KB of it
-// reserved a block). Both dtypes have the same layout in bytes.
+// reserved a block). Both dtypes have the same layout in bytes. The
+// wrapper's plan reports STAGES and mirrors MIN_BLOCKS (ops/matmul.py:
+// RING_STAGES, BLOCKS_PER_SM).
 template <typename T, class C>
 struct Layout {
   static constexpr bool F32 = std::is_same<T, float>::value;
@@ -485,27 +487,16 @@ cudaError_t by_vec(int vec, const void* a, const void* b, void* out,
   }
 }
 
-template <typename T, class C>
-cudaError_t with_tile(int stages, int vec, const void* a, const void* b,
-                      void* out, float* ws, int M, int N, int K, int split,
-                      int kps, cudaStream_t s) {
-  if (stages != Layout<T, C>::STAGES) return cudaErrorInvalidValue;
-  return by_vec<T, C>(vec, a, b, out, ws, M, N, K, split, kps, s);
-}
-
 template <typename T>
-cudaError_t by_tile(int bm, int bn, int stages, int vec, const void* a,
-                    const void* b, void* out, float* ws, int M, int N, int K,
-                    int split, int kps, cudaStream_t s) {
+cudaError_t by_tile(int bm, int bn, int vec, const void* a, const void* b,
+                    void* out, float* ws, int M, int N, int K, int split,
+                    int kps, cudaStream_t s) {
   if (bm == 128 && bn == 128)
-    return with_tile<T, Wide>(stages, vec, a, b, out, ws, M, N, K, split,
-                              kps, s);
+    return by_vec<T, Wide>(vec, a, b, out, ws, M, N, K, split, kps, s);
   if (bm == 128 && bn == 64)
-    return with_tile<T, Skinny>(stages, vec, a, b, out, ws, M, N, K, split,
-                                kps, s);
+    return by_vec<T, Skinny>(vec, a, b, out, ws, M, N, K, split, kps, s);
   if (bm == 64 && bn == 64)
-    return with_tile<T, Narrow>(stages, vec, a, b, out, ws, M, N, K, split,
-                                kps, s);
+    return by_vec<T, Narrow>(vec, a, b, out, ws, M, N, K, split, kps, s);
   return cudaErrorInvalidValue;
 }
 
@@ -514,15 +505,15 @@ cudaError_t by_tile(int bm, int bn, int stages, int vec, const void* a,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (a, b and out alike, contiguous
-// row-major). (bm, bn): the tile, 128 x 128, 128 x 64 or 64 x 64; stages
-// must be the ring depth compiled for (dtype, tile). vec: copy width in
+// row-major). (bm, bn): the tile, 128 x 128, 128 x 64 or 64 x 64, each
+// with the ring depth compiled for it (Layout::STAGES). vec: copy width in
 // bytes (16, 8, 4; 2 for bf16 only), which must divide both pointers and
 // both row lengths in bytes. K is split into `split` ranges of k_per_split
 // (a multiple of the K step: 32 f32, 64 bf16), none empty; with
 // split > 1, ws holds split * M * N float32 partials.
 int matmul_launch(const void* a, const void* b, void* out, void* ws, int M,
-                  int N, int K, int dtype, int bm, int bn, int stages,
-                  int vec, int split, int k_per_split, void* stream) {
+                  int N, int K, int dtype, int bm, int bn, int vec, int split,
+                  int k_per_split, void* stream) {
   const int es = dtype == 0 ? 4 : 2;
   const uintptr_t align = reinterpret_cast<uintptr_t>(a)
                           | reinterpret_cast<uintptr_t>(b)
@@ -538,10 +529,10 @@ int matmul_launch(const void* a, const void* b, void* out, void* ws, int M,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   cudaError_t e = dtype == 0
-      ? by_tile<float>(bm, bn, stages, vec, a, b, out, w, M, N, K, split,
+      ? by_tile<float>(bm, bn, vec, a, b, out, w, M, N, K, split,
                        k_per_split, s)
-      : by_tile<__nv_bfloat16>(bm, bn, stages, vec, a, b, out, w, M, N, K,
-                               split, k_per_split, s);
+      : by_tile<__nv_bfloat16>(bm, bn, vec, a, b, out, w, M, N, K, split,
+                               k_per_split, s);
   return static_cast<int>(e);
 }
 

@@ -27,10 +27,14 @@ from .cuda_build import load
 # the kernel's output tiles (BM, BN): wide, skinny (N <= 64) and narrow
 WIDE, SKINNY, NARROW = (128, 128), (128, 64), (64, 64)
 STEP_BYTES = 128          # the kernel's K step: 128 bytes of a row of a
-N_SMS = 132               # streaming multiprocessors of an H100 SXM
-# blocks of each tile that an SM holds at once: its __launch_bounds__
-# minimum, for which its registers are capped and its ring is sized
+# blocks of each tile that an SM holds at once: a mirror of Tile::MIN_BLOCKS
+# in matmul.cu, its __launch_bounds__ minimum, for which registers are
+# capped and the ring is sized (a static_assert in Layout holds the ring
+# to it)
 BLOCKS_PER_SM = {WIDE: 1, SKINNY: 2, NARROW: 3}
+# the ring depth matmul.cu compiles for each tile (Layout::STAGES), which
+# owns it; reported by the plan, not passed to the kernel
+RING_STAGES = {WIDE: 3, SKINNY: 4, NARROW: 4}
 # split-K fills one wave, at most two blocks an SM: more partial sums cost
 # more than the extra blocks gain on the small products of chip_smoke.py
 SPLIT_BLOCKS_PER_SM = 2
@@ -55,16 +59,17 @@ def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class Plan(NamedTuple):
     tile: tuple        # (BM, BN, BK); BK: 32 f32 or 64 bf16 (128 bytes)
-    stages: int        # depth of the shared-memory ring
+    stages: int        # depth of the shared-memory ring (reported only)
     split: int         # K ranges, one block each; > 1 adds a reduce kernel
     vec: int           # copy width in bytes: 16, 8, 4 (cp.async) or 2
     k_per_split: int   # a multiple of BK; the last range may be shorter
 
 
 def plan(M: int, N: int, K: int, dtype: torch.dtype, a_ptr: int, b_ptr: int,
-         bm: int = 512, bn: int = 256) -> Plan:
+         sms: int, bm: int = 512, bn: int = 256) -> Plan:
     """How the kernel runs ``(M, K) @ (K, N)`` in ``dtype`` for operands at
-    the addresses ``a_ptr`` and ``b_ptr``.
+    the addresses ``a_ptr`` and ``b_ptr`` on a card of ``sms`` streaming
+    multiprocessors (132 on an H100 SXM, 114 on a PCIe one).
 
     - Tile: as the JAX signature's hints clamp, ``bm`` to ``round_to(M, 8)``
       and ``bn`` to ``N``; with a clamped ``bm`` of at least 128, the
@@ -73,10 +78,11 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype, a_ptr: int, b_ptr: int,
       grid would not reach half the SMs gives way to the 64 x 64 one:
       small products are latency-bound, and its four times more tiles need
       fewer partial sums.
-    - Ring depth: the deepest of which ``BLOCKS_PER_SM`` blocks fit an SM:
-      3 stages of the 128 x 128 tile (105 KB), 4 of the others.
+    - Ring depth (``RING_STAGES``, fixed by the kernel): the deepest of
+      which ``BLOCKS_PER_SM`` blocks fit an SM: 3 stages of the 128 x 128
+      tile (105 KB), 4 of the others.
     - Split: with output tiles for at most half of one wave (the blocks
-      that the card holds at once, ``BLOCKS_PER_SM`` x ``N_SMS``, but at
+      that the card holds at once, ``BLOCKS_PER_SM`` x ``sms``, but at
       most ``SPLIT_BLOCKS_PER_SM`` an SM), K is split so the grid fills
       that wave and no more, at most ``MAX_SPLIT`` ways and with at least
       ``MIN_STEPS_PER_SPLIT`` K steps a split. A grid past one wave would
@@ -91,7 +97,7 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype, a_ptr: int, b_ptr: int,
     tile = NARROW
     if min(bm, _round_to(M, 8)) >= 128:
         tile = WIDE if min(bn, N) > 64 else SKINNY
-        if _cdiv(M, tile[0]) * _cdiv(N, tile[1]) < N_SMS // 2:
+        if _cdiv(M, tile[0]) * _cdiv(N, tile[1]) < sms // 2:
             tile = NARROW
     align = a_ptr | b_ptr | (K * es) | (N * es)
     vec = next(v for v in (16, 8, 4, 2) if align % v == 0)
@@ -100,11 +106,11 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype, a_ptr: int, b_ptr: int,
     bk = STEP_BYTES // es
     k_steps = _cdiv(K, bk)
     tiles = _cdiv(M, tile[0]) * _cdiv(N, tile[1])
-    wave = min(BLOCKS_PER_SM[tile], SPLIT_BLOCKS_PER_SM) * N_SMS
+    wave = min(BLOCKS_PER_SM[tile], SPLIT_BLOCKS_PER_SM) * sms
     split = max(1, min(wave // tiles, MAX_SPLIT,
                        k_steps // MIN_STEPS_PER_SPLIT))
     k_per_split = _cdiv(k_steps, split) * bk
-    return Plan(tile=(*tile, bk), stages=3 if tile == WIDE else 4,
+    return Plan(tile=(*tile, bk), stages=RING_STAGES[tile],
                 split=_cdiv(K, k_per_split), vec=vec,
                 k_per_split=k_per_split)
 
@@ -119,13 +125,14 @@ class MatmulKernel:
     def __init__(self):
         self.launches = 0
         self._fn = None
+        self._sms = {}     # device -> its streaming multiprocessors
 
     def _entry(self):
         """The C entry point, built and typed on first use."""
         if self._fn is None:
             fn = load("matmul").matmul_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                            + [ctypes.c_void_p])
             self._fn = fn
         return self._fn
@@ -164,15 +171,19 @@ class MatmulKernel:
             return out
         if K == 0:
             return out.zero_()
-        p = plan(M, N, K, a.dtype, a.data_ptr(), b.data_ptr(), bm, bn)
+        if a.device not in self._sms:
+            self._sms[a.device] = torch.cuda.get_device_properties(
+                a.device).multi_processor_count
+        p = plan(M, N, K, a.dtype, a.data_ptr(), b.data_ptr(),
+                 self._sms[a.device], bm, bn)
         ws = (torch.empty((p.split, M, N), dtype=torch.float32,
                           device=a.device) if p.split > 1 else None)
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = self._entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                            0 if ws is None else ws.data_ptr(), M, N, K,
                            int(a.dtype == torch.bfloat16), p.tile[0],
-                           p.tile[1], p.stages, p.vec, p.split,
-                           p.k_per_split, stream)
+                           p.tile[1], p.vec, p.split, p.k_per_split,
+                           stream)
         if rc != 0:
             raise RuntimeError(f"matmul launch failed with CUDA error {rc}")
         self.launches += 1

@@ -22,6 +22,7 @@ from laplace_gnn_torch.ops import matmul as T
 SHAPES = [(64, 48, 32), (37, 50, 29), (130, 200, 70)]
 TILINGS = [(32, 128, 128), (512, 256, 512)]
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+SMS = 132        # streaming multiprocessors of an H100 SXM
 
 
 def _inputs(m, k, n, seed=0):
@@ -80,7 +81,7 @@ TIMED = [((2708, 2708, 64, "float32"), 6),
                          if isinstance(x, tuple) else str(x))
 def test_plan_splits_k_only_for_skinny_products(shape, split):
     m, k, n, dt = shape
-    p = T.plan(m, n, k, getattr(torch, dt), 0, 0)
+    p = T.plan(m, n, k, getattr(torch, dt), 0, 0, SMS)
     assert p.split == split
     assert p.k_per_split % p.tile[2] == 0
     assert (p.split - 1) * p.k_per_split < k <= p.split * p.k_per_split
@@ -120,7 +121,7 @@ def test_plan_copy_width_follows_pointers_and_row_bytes(name, make_a, make_b,
     a, b = make_a(), make_b()
     assert a.is_contiguous()
     (m, k), n = a.shape, b.shape[1]
-    p = T.plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr())
+    p = T.plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr(), SMS)
     assert p.vec == vec
 
 
@@ -141,31 +142,55 @@ def test_plan_tile_follows_the_hints(shape, tiling, tile, stages):
     m, k, n = shape
     bm, bn, _ = tiling
     for dtype, bk in ((torch.float32, 32), (torch.bfloat16, 64)):
-        p = T.plan(m, n, k, dtype, 0, 0, bm=bm, bn=bn)
+        p = T.plan(m, n, k, dtype, 0, 0, SMS, bm=bm, bn=bn)
         assert p.tile == (*tile, bk) and p.stages == stages
+
+
+def _check_k_ranges(m, n, k, dtype, sms):
+    p = T.plan(m, n, k, dtype, 0, 0, sms)
+    bk = p.tile[2]
+    assert bk * dtype.itemsize == T.STEP_BYTES
+    assert 1 <= p.split <= T.MAX_SPLIT and p.k_per_split % bk == 0
+    assert (p.split - 1) * p.k_per_split < k <= p.split * p.k_per_split
+    assert p.stages == T.RING_STAGES[p.tile[:2]]
+    tiles = -(-m // p.tile[0]) * -(-n // p.tile[1])
+    if p.split > 1:   # the grid stays within one wave
+        assert tiles * p.split <= T.BLOCKS_PER_SM[p.tile[:2]] * sms
+        assert tiles * p.split <= T.SPLIT_BLOCKS_PER_SM * sms
+        assert p.k_per_split >= T.MIN_STEPS_PER_SPLIT * bk
+    return p
 
 
 @pytest.mark.parametrize("k", [1, 31, 32, 33, 200, 1433, 2708, 16384])
 def test_plan_k_ranges_are_whole_steps_and_none_empty(k):
     for (m, n), dtype in itertools.product(
             ((5, 3), (300, 64), (2708, 64)), (torch.float32, torch.bfloat16)):
-        p = T.plan(m, n, k, dtype, 0, 0)
-        bk = p.tile[2]
-        assert bk * dtype.itemsize == T.STEP_BYTES
-        assert 1 <= p.split <= T.MAX_SPLIT and p.k_per_split % bk == 0
-        assert (p.split - 1) * p.k_per_split < k <= p.split * p.k_per_split
+        _check_k_ranges(m, n, k, dtype, SMS)
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("shape", [(2708, 2708, 64), (16384, 16384, 64),
+                                   (300, 2000, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plan_split_fills_one_wave_of_the_card(shape, sms):
+    """The split follows the card's SM count: an H100 PCIe has 114 SMs,
+    where a split sized for 132 would spill into a second wave."""
+    m, k, n = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        p = _check_k_ranges(m, n, k, dtype, sms)
         tiles = -(-m // p.tile[0]) * -(-n // p.tile[1])
-        if p.split > 1:   # the grid stays within one wave
-            assert tiles * p.split <= T.BLOCKS_PER_SM[p.tile[:2]] * T.N_SMS
-            assert tiles * p.split <= T.SPLIT_BLOCKS_PER_SM * T.N_SMS
-            assert p.k_per_split >= T.MIN_STEPS_PER_SPLIT * bk
+        wave = min(T.BLOCKS_PER_SM[p.tile[:2]], T.SPLIT_BLOCKS_PER_SM) * sms
+        # no larger split fits the wave and the split limits
+        if p.split < min(T.MAX_SPLIT,
+                         -(-k // p.tile[2]) // T.MIN_STEPS_PER_SPLIT):
+            assert tiles * (p.split + 1) > wave
 
 
 def test_plan_rejects_other_dtypes_and_misaligned_f32():
     with pytest.raises(TypeError, match="no kernel"):
-        T.plan(4, 4, 4, torch.float64, 0, 0)
+        T.plan(4, 4, 4, torch.float64, 0, 0, SMS)
     with pytest.raises(ValueError, match="4-byte aligned"):
-        T.plan(4, 4, 4, torch.float32, 2, 0)
+        T.plan(4, 4, 4, torch.float32, 2, 0, SMS)
 
 
 # on the card: (M, K, N, tiling, how a is made); every case for f32 and bf16
@@ -199,7 +224,9 @@ def test_matmul_kernel_on_card_matches_plain():
         for dtype in (torch.float32, torch.bfloat16):
             ta, tb = _card_operands(m, k, n, how, dtype, seed=m + k)
             assert ta.is_contiguous()
-            p = T.plan(m, n, k, dtype, ta.data_ptr(), tb.data_ptr(), bm, bn)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            p = T.plan(m, n, k, dtype, ta.data_ptr(), tb.data_ptr(), sms,
+                       bm, bn)
             seen_split.add(p.split > 1)
             before = T.matmul.launches
             got = T.matmul(ta, tb, bm=bm, bn=bn, bk=bk)
