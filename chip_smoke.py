@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``laplace_gnn_torch``) on one CUDA GPU.
 
-    python3 chip_smoke.py                # every phase: the port's proof
-    python3 chip_smoke.py --only matmul  # build + phase 7, for kernel work
+    python3 chip_smoke.py                   # every phase: the port's proof
+    python3 chip_smoke.py --only matmul     # build + phase 7, kernel work
+    python3 chip_smoke.py --only core_spmm  # build + phase 2, kernel work
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
   2. hold the ``core_spmm`` kernel against its plain PyTorch version at the
-     trainer's shapes (N = 2708; d = 64 and 7; plain and transposed;
-     binarized f32, raw f32 and int8 adjacency) and time it with CUDA
-     events beside the plain version, one PyTorch matmul on a
-     pre-binarized matrix, and its bound on this card;
+     main paths' shapes (CORE_CASES: the trainer's N = 2708 with d = 64 and
+     7, plain and transposed; the Jacobians' folded d = 12250 and 112000;
+     GCN's int8 at N = 2708 and 16384 and raw f32) and time it cold with
+     CUDA events beside the plain version, torch.matmul on the
+     pre-binarized matrix (f32; bf16 too at the wide widths) and its bound
+     on this card, the trainer's shapes also warm; then check, untimed, the
+     edge cases of CORE_CHECKS (N = 2707 and 40, offset views of A and t,
+     d = 1, 65, 129, bf16 t, transposed raw and int8); every call is
+     repeated and must give the same bits;
   3. run the STE-GCN marglik trainer (``marglik_optimization``, fused
      kernel path, symmetric) at Cora's width on a synthetic Cora-shaped
      graph for a few epochs with two hyperstep rounds, with the kernel's
@@ -53,8 +59,9 @@ Phases, each fatal:
      vmapped Jacobians and the functional variance also timed apart) and
      ``mc_eval(pred_type="nn", n_samples=100)``, each with its time, peak
      memory and ``core_spmm`` launches (counts set to 0 just before each
-     part); check the log marglik and probit probabilities on a small
-     graph against the float64 CPU path;
+     part), and the Jacobians' device time by kernel name (one more pass
+     under torch.profiler); check the log marglik and probit probabilities
+     on a small graph against the float64 CPU path;
   9. the same for the phase-6 GAT at N = 2708: ``fit_laplace`` (0 flash
      launches), the log marglik, ``mc_eval(pred_type="nn", n_samples=20)``
      (40 ``flash_fwd`` launches) and the probit GLM predictive on 100
@@ -68,8 +75,10 @@ Phases, each fatal:
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
 it runs phases 1 (``matmul.cu`` alone) and 7, and its last line is
-``{"partial": ["matmul"]}``, never the ``ok`` line. Exits non-zero, with no
-result, when there is no CUDA device or the package is not beside it.
+``{"partial": ["matmul"]}``, never the ``ok`` line; ``--only
+core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2. Exits
+non-zero, with no result, when there is no CUDA device or the package is
+not beside it.
 Per-shape measurements also go to ``chiprun_out/chip_smoke.json``, and
 each source's ptxas report to ``chiprun_out/build_<source>.log``.
 """
@@ -167,9 +176,10 @@ def cold_ms(torch, fn, reps: int = 20) -> float:
     return total / reps
 
 
-def profile_step(torch, fn) -> dict:
+def profile_step(torch, fn, top: int = 8) -> dict:
     """One call of ``fn`` under torch.profiler: the device time of its GPU
-    kernels (and memsets/copies), summed by kernel name."""
+    kernels (and memsets/copies), summed by kernel name (the ``top``
+    longest listed), and the share of it in the ``core_spmm`` kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -182,10 +192,14 @@ def profile_step(torch, fn) -> dict:
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    return {"device_ms": sum(r[1] for r in rows),
+    device_ms = sum(r[1] for r in rows)
+    core_ms = sum(r[1] for r in rows if "core_" in r[0])
+    return {"device_ms": device_ms,
             "n_kernels": sum(r[2] for r in rows),
+            "core_spmm_ms": core_ms,
+            "core_spmm_share": core_ms / device_ms if device_ms else 0.0,
             "top": [{"name": k[:70], "ms": ms, "count": c}
-                    for k, ms, c in rows[:8]]}
+                    for k, ms, c in rows[:top]]}
 
 
 def make_graph(np, rng):
@@ -198,78 +212,236 @@ def make_graph(np, rng):
     return X, adj, y
 
 
-def phase_kernel(torch, np, fs, peaks):
-    """Kernel against plain version at the trainer's shapes, and times."""
-    bw, flops_peak = peaks
-    rng = np.random.default_rng(1)
-    _, adj, _ = make_graph(np, rng)
-    # a learned adjacency after symmetrization: 1, 0 and exact 0.5 ties
-    raw = np.where(rng.random(adj.shape) < 0.5, adj, adj.T)
-    a_sym = torch.as_tensor((raw + raw.T) / 2, device="cuda")
-    a_raw = torch.as_tensor(rng.random(adj.shape, dtype=np.float32),
-                            device="cuda")
-    a_i8 = torch.as_tensor((raw > 0.5).astype(np.int8), device="cuda")
-    rows, max_err = [], 0.0
-    for d in (HIDDEN, N_CLASS):
-        t = torch.randn(N_NODES, d, device="cuda")
-        t_q = torch.round(t * 8) / 8            # exact in bf16
-        for transpose in (False, True):
-            # binarized f32 A (the trainer's calls): t rounds to bf16, B is
-            # exact, so |err| <= 2^-9 (|B|^T|t|); we allow 2^-8
-            got = fs.core(a_sym, t, 0.5, True, transpose)
-            ref = fs.core_reference(a_sym, t, 0.5, True, transpose)
-            tol = 2.0 ** -8 * fs.core_reference(a_sym, t.abs(), 0.5, True,
-                                                transpose) + 1e-6
-            err = (got - ref).abs()
-            if not bool((err <= tol).all()):
-                raise AssertionError(f"binarized d={d} T={transpose}: "
-                                     f"max err {float(err.max())}")
-            max_err = max(max_err, float(err.max()))
-            # raw f32 A: A and t both round to bf16 -> 2^-7 (|A|^T|t|)
-            got = fs.core(a_raw, t, binarize=False, transpose=transpose)
-            ref = fs.core_reference(a_raw, t, binarize=False,
-                                    transpose=transpose)
-            tol = 2.0 ** -7 * fs.core_reference(
-                a_raw, t.abs(), binarize=False, transpose=transpose) + 1e-5
-            if not bool(((got - ref).abs() <= tol).all()):
-                raise AssertionError(f"raw f32 d={d} T={transpose}")
-            # int8 0/1 A with t exact in bf16: exact
-            got = fs.core(a_i8, t_q, binarize=False, transpose=transpose)
-            ref = fs.core_reference(a_i8, t_q, binarize=False,
-                                    transpose=transpose)
-            if not torch.equal(got, ref):
-                raise AssertionError(f"int8 d={d} T={transpose} not exact")
+# the core_spmm calls of the main paths, timed: (case, N, d, adjacency,
+# transposes). Trainer: STE-GCN layer 1 (d = 64) and layer 2 / the KFAC
+# pullback columns (d = 7). Jacobians: one chunk of JAC_CHUNK test nodes x C
+# one-hot cotangents folded into the feature axis by _CoreFn's vmap rule
+# (C x C at layer 2, C x HIDDEN at layer 1). GCN: fused="int8" at Cora's
+# size, "auto" at N = 16384 (where it switches to int8), fused=True (raw f32)
+CORE_CASES = [
+    ("trainer_layer1", N_NODES, HIDDEN, "f32_bin", (False, True)),
+    ("trainer_layer2", N_NODES, N_CLASS, "f32_bin", (False, True)),
+    ("jacobians_layer2", N_NODES, 250 * N_CLASS * N_CLASS, "f32_bin",
+     (True,)),
+    ("jacobians_layer1", N_NODES, 250 * N_CLASS * HIDDEN, "f32_bin",
+     (True,)),
+    ("gcn_int8", N_NODES, HIDDEN, "int8", (False,)),
+    ("gcn_auto_int8", 16384, HIDDEN, "int8", (False,)),
+    ("gcn_fused_f32", N_NODES, HIDDEN, "f32_raw", (False,)),
+]
+WARM_CASES = ("trainer_layer1", "trainer_layer2")
 
-            b_pre = fs.core_reference(a_sym, torch.eye(
-                N_NODES, device="cuda"), 0.5, True, False).T.contiguous()
-            lib = ((lambda: torch.matmul(b_pre, t)) if transpose
-                   else (lambda: torch.matmul(b_pre.T, t)))
-            nbytes = N_NODES * N_NODES * 4 + 2 * N_NODES * d * 4
-            nflop = 2 * N_NODES * N_NODES * d
-            bound = max(nbytes / bw, nflop / flops_peak) * 1e3
-            rows.append({
-                "n": N_NODES, "d": d, "transpose": transpose,
-                "adj": "float32 binarized",
-                "ms": cold_ms(torch, lambda: fs.core(a_sym, t, 0.5, True,
-                                                     transpose)),
+
+def warm_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back launches on
+    the same inputs (no L2 flush: what the train step and hyperstep see,
+    launching the same adjacency in turn), CUDA events around the run."""
+    for _ in range(3):
+        fn()
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    return a.elapsed_time(b) / reps
+
+
+def core_adjacency(torch, n, kind, seed):
+    """(the kernel's adjacency, the pre-binarized f32 matrix B with
+    core(A, t) = B^T t for transpose=False): a learned adjacency after
+    symmetrization (1, 0 and exact 0.5 ties) at Cora's density, uniform
+    [0, 1) values for the raw f32 mode, a 0/1 int8 matrix for the int8
+    mode; made on the card from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "f32_raw":
+        a = torch.rand(n, n, generator=g, device="cuda")
+        return a, a
+    e = torch.rand(n, n, generator=g, device="cuda") < DENSITY
+    e = e | e.T
+    one_way = e & (torch.rand(n, n, generator=g, device="cuda") < 0.5)
+    raw = one_way.float()
+    del e, one_way
+    a = (raw + raw.T) / 2
+    a.fill_diagonal_(0.0)
+    del raw
+    if kind == "int8":
+        a = (a > 0.5).to(torch.int8)
+        return a, a.float()
+    b = (a > 0.5).float()
+    b.fill_diagonal_(1.0)
+    return a, b
+
+
+def core_check(torch, fs, a, t, kind, transpose):
+    """(kernel output, max abs error, its tolerance) against the plain
+    version; raises when it disagrees or when a second call does not give
+    the same bits. Binarized f32 A: B is exact in bf16
+    and t rounds once, |err| <= 2^-9 |B|^T|t|, held at 2^-8; raw f32 A: A
+    and t both round, held at 2^-7 |A|^T|t|; int8 0/1 A with t exact in
+    bf16: exact."""
+    binarize = kind == "f32_bin"
+    got = fs.core(a, t, 0.5, binarize, transpose)
+    # deterministic: a split plan sums its partials in a fixed order
+    if not torch.equal(got, fs.core(a, t, 0.5, binarize, transpose)):
+        raise AssertionError(f"core_spmm {kind} n={a.shape[0]} d={t.shape[1]}"
+                             f" T={transpose}: two calls differ")
+    ref = fs.core_reference(a, t, 0.5, binarize, transpose)
+    err = (got.float() - ref.float()).abs()
+    if kind == "int8":
+        ok, tol = torch.equal(got, ref), 0.0
+    else:
+        scale = fs.core_reference(a, t.abs(), 0.5, binarize, transpose)
+        bound = (2.0 ** -8 if binarize else 2.0 ** -7) * scale.float() + (
+            1e-6 if binarize else 1e-5)
+        ok, tol = bool((err <= bound).all()), float(bound.max())
+        del scale, bound
+    if not (ok and got.shape == t.shape and got.dtype == t.dtype
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"core_spmm {kind} n={a.shape[0]} d={t.shape[1]}"
+                             f" T={transpose}: max err {float(err.max())}")
+    return got, float(err.max()), tol
+
+
+def phase_kernel(torch, fs, peaks):
+    """core_spmm against its plain version at every shape of CORE_CASES,
+    timed cold beside the plain version, torch.matmul on the pre-binarized
+    matrix (f32, and bf16 at the wide widths) and its bound on this card;
+    the trainer's shapes also warm."""
+    bw, flops_peak = peaks
+    rows, max_err = [], 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for case, n, d, kind, transposes in CORE_CASES:
+        a, b_pre = core_adjacency(torch, n, kind, seed=n + d)
+        g = torch.Generator(device="cuda").manual_seed(d)
+        t = torch.randn(n, d, generator=g, device="cuda")
+        if kind == "int8":
+            t = torch.round(t * 8) / 8            # exact in bf16
+        wide = d > 1024
+        reps = 5 if wide else 20
+        binarize = kind == "f32_bin"
+        for transpose in transposes:
+            _, err, tol = core_check(torch, fs, a, t, kind, transpose)
+            max_err = max(max_err, err)
+            nbytes = n * n * a.element_size() + 2 * n * d * 4
+            nflop = 2 * n * n * d
+            t_b, t_o = nbytes / bw, nflop / flops_peak
+            run = lambda: fs.core(a, t, 0.5, binarize, transpose)
+            bm = b_pre if transpose else b_pre.T
+            row = {
+                "case": case, "n": n, "d": d, "transpose": transpose,
+                "adj": kind,
+                "plan": fs.plan(n, d, a.dtype, t.dtype, a.data_ptr(),
+                                t.data_ptr(), sms)._asdict(),
+                "ms": cold_ms(torch, run, reps),
                 "plain_ms": cold_ms(torch, lambda: fs.core_reference(
-                    a_sym, t, 0.5, True, transpose)),
-                "library_ms": cold_ms(torch, lib),
-                "bound_ms": bound,
-                "bound_by": "bytes" if nbytes / bw >= nflop / flops_peak
-                else "operations"})
-        # the int8 read of the same product (GCN "int8" mode)
-        nbytes = N_NODES * N_NODES + 2 * N_NODES * d * 4
-        rows.append({
-            "n": N_NODES, "d": d, "transpose": False, "adj": "int8 raw",
-            "ms": cold_ms(torch, lambda: fs.core(a_i8, t, binarize=False)),
-            "plain_ms": cold_ms(torch, lambda: fs.core_reference(
-                a_i8, t, binarize=False)),
-            "library_ms": None,
-            "bound_ms": max(nbytes / bw, 2 * N_NODES ** 2 * d / flops_peak)
-            * 1e3, "bound_by": "bytes"})
+                    a, t, 0.5, binarize, transpose), reps),
+                "library_ms": cold_ms(torch, lambda: torch.matmul(bm, t),
+                                      reps),
+                "bound_ms": max(t_b, t_o) * 1e3,
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "max_abs_err": err, "tol": tol}
+            if wide:
+                bm16, t16 = bm.to(torch.bfloat16), t.to(torch.bfloat16)
+                row["library_bf16_ms"] = cold_ms(
+                    torch, lambda: torch.matmul(bm16, t16), reps)
+                del bm16, t16
+            if case in WARM_CASES:
+                row["warm_ms"] = warm_ms(torch, run)
+                row["library_warm_ms"] = warm_ms(
+                    torch, lambda: torch.matmul(bm, t))
+            row["card_after"] = card_state()
+            rows.append(row)
+            print("core_spmm " + json.dumps(row), flush=True)
+        del a, b_pre, t
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return rows, max_err
+
+
+# edge cases of core_spmm checked against the plain version, not timed:
+# (case, N, d, adjacency, transpose, variant). N = 2707 has no 16-byte
+# rows (f32: 4-byte copies; int8: 1-byte loads), N = 40 is smaller than
+# one tile; the views: A one element into its buffer (4-byte copies),
+# a[1:, 1:].contiguous(), t one element into its buffer; d = 1, 65 (the
+# wide tile, split) and 129; bf16 t (output in bf16; d = 7 takes 2-byte
+# loads); the transposed raw and int8 modes
+CORE_CHECKS = [
+    ("n=2707", 2707, HIDDEN, "f32_bin", False, None),
+    ("n=2707", 2707, HIDDEN, "f32_bin", True, None),
+    ("n=2707", 2707, HIDDEN, "int8", False, None),
+    ("n=2707", 2707, N_CLASS, "int8", True, None),
+    ("n=2707", 2707, N_CLASS, "f32_raw", True, None),
+    ("n=40", 40, N_CLASS, "f32_bin", False, None),
+    ("n=40", 40, N_CLASS, "f32_bin", True, None),
+    ("a_offset_view", N_NODES, HIDDEN, "f32_bin", False, "a_offset"),
+    ("a_offset_view", N_NODES, HIDDEN, "f32_bin", True, "a_offset"),
+    ("a[1:,1:]", N_NODES, HIDDEN, "f32_bin", False, "a_sub"),
+    ("t_offset_view", N_NODES, HIDDEN, "f32_bin", False, "t_offset"),
+    ("t_offset_view", N_NODES, 129, "f32_bin", True, "t_offset"),
+    ("d=1", N_NODES, 1, "f32_bin", False, None),
+    ("d=1", N_NODES, 1, "f32_bin", True, None),
+    ("d=65", N_NODES, 65, "f32_bin", False, None),
+    ("d=65", N_NODES, 65, "f32_bin", True, None),
+    ("d=129", N_NODES, 129, "f32_bin", False, None),
+    ("d=129", N_NODES, 129, "f32_bin", True, None),
+    ("bf16_t", N_NODES, HIDDEN, "f32_bin", False, "t_bf16"),
+    ("bf16_t", N_NODES, HIDDEN, "f32_bin", True, "t_bf16"),
+    ("bf16_t", N_NODES, N_CLASS, "f32_bin", True, "t_bf16"),
+    ("bf16_t", N_NODES, 129, "f32_bin", True, "t_bf16"),
+    ("raw", N_NODES, HIDDEN, "f32_raw", True, None),
+    ("raw", N_NODES, 129, "f32_raw", False, None),
+    ("int8", N_NODES, HIDDEN, "int8", True, None),
+    ("int8", N_NODES, N_CLASS, "int8", False, None),
+    ("int8", N_NODES, 200, "int8", True, None),
+]
+
+
+def phase_core_checks(torch, fs):
+    """core_spmm's edge cases against the plain version, untimed, with the
+    tolerances of ``core_check`` (which also holds two calls to the same
+    bits); at least one case must split j."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, adjs = [], {}
+    for case, n, d, kind, transpose, variant in CORE_CHECKS:
+        if (n, kind) not in adjs:
+            adjs.clear()
+            adjs[(n, kind)] = core_adjacency(torch, n, kind, seed=n)[0]
+        a = adjs[(n, kind)]
+        if variant == "a_offset":
+            buf = torch.empty(n * n + 1, dtype=a.dtype, device="cuda")
+            buf[1:].copy_(a.reshape(-1))
+            a = buf[1:].view(n, n)
+        elif variant == "a_sub":
+            a = a[1:, 1:].contiguous()
+        m = a.shape[0]
+        g = torch.Generator(device="cuda").manual_seed(m + d)
+        t = torch.randn(m * d + 1, generator=g, device="cuda")
+        t = t[1:].view(m, d) if variant == "t_offset" else t[:m * d].view(m, d)
+        if kind == "int8":
+            t = torch.round(t * 8) / 8            # exact in bf16
+        if variant == "t_bf16":
+            t = t.to(torch.bfloat16)
+        p = fs.plan(m, d, a.dtype, t.dtype, a.data_ptr(), t.data_ptr(), sms)
+        _, err, tol = core_check(torch, fs, a, t, kind, transpose)
+        out.append({"case": case, "n": m, "d": d, "adj": kind,
+                    "t_dtype": str(t.dtype).split(".")[-1],
+                    "transpose": transpose, "tile": p.tile,
+                    "split": p.split, "vec_a": p.vec_a, "vec_t": p.vec_t,
+                    "max_abs_err": err, "tol": tol})
+        print("core_spmm check " + json.dumps(out[-1]), flush=True)
+    if not any(r["split"] > 1 for r in out):
+        raise AssertionError("core_spmm: no checked case split j")
+    torch.cuda.synchronize()
+    return out
 
 
 def phase_trainer(torch, np, card):
@@ -363,7 +535,8 @@ def phase_trainer(torch, np, card):
                        "profile": prof}
         print(f"{name}: median {step_ms:.3f} ms over {reps} (CUDA events), "
               f"{launches:g} core_spmm launches; profiled kernels: "
-              f"{prof['device_ms']:.3f} ms of device time in "
+              f"{prof['device_ms']:.3f} ms of device time (core_spmm "
+              f"{prof['core_spmm_ms']:.3f}) in "
               f"{prof['n_kernels']} launches, busy share "
               f"{prof['busy_share']:.2f}  [{card}]", flush=True)
         for r in prof["top"]:
@@ -953,6 +1126,15 @@ def phase_laplace_stegcn(torch, np, state, kernels, card):
     f_var = part("functional_variance", lambda: la.functional_variance(Js),
                  {"core_spmm": 0, **zero})
     del Js
+    # the Jacobians' device time by kernel name (one more pass, uncounted)
+    jac_prof = profile_step(torch, lambda: la.backend.jacobians(idx), top=12)
+    print(f"STE-GCN Laplace jacobians profiled: {jac_prof['device_ms']:.3f} "
+          f"ms of device time in {jac_prof['n_kernels']} launches, "
+          f"core_spmm {jac_prof['core_spmm_ms']:.3f} ms "
+          f"({100 * jac_prof['core_spmm_share']:.1f}%)  [{card}]", flush=True)
+    for r in jac_prof["top"]:
+        print(f"  {r['ms']:8.3f} ms x{r['count']:<4d} {r['name']}", flush=True)
+    torch.cuda.empty_cache()
     probs = probit_predictive(f_mu, f_var)
     _check_probs(np, probs, N_TEST)
     q_bayes = part("evaluate_predictive_probit", lambda: evaluate_predictive(
@@ -977,7 +1159,8 @@ def phase_laplace_stegcn(torch, np, state, kernels, card):
     del la, f_var
     torch.cuda.empty_cache()
     return {"parts": parts, "log_marglik": lml, "map": q_map,
-            "bayes_probit": q_bayes, "mc_nn": mc, "n_params": n_params}
+            "bayes_probit": q_bayes, "mc_nn": mc, "n_params": n_params,
+            "jacobians_profile": jac_prof}
 
 
 def phase_laplace_small_reference(torch, np):
@@ -1114,7 +1297,7 @@ def build_kernels(cuda_build, out_dir, names=None):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["matmul"],
+    parser.add_argument("--only", choices=["matmul", "core_spmm"],
                         help="build and run this kernel's phase alone; "
                              "prints no ok line")
     args = parser.parse_args(argv)
@@ -1151,11 +1334,21 @@ def main(argv=None) -> int:
         print(card, flush=True)
         print(json.dumps({"partial": ["matmul"]}), flush=True)
         return 0
+    if args.only == "core_spmm":
+        build_kernels(cuda_build, out_dir, ["core_spmm"])
+        rows, _ = phase_kernel(torch, fs, peaks)
+        checks = phase_core_checks(torch, fs)
+        with open(os.path.join(out_dir, "chip_smoke_core_spmm.json"),
+                  "w") as f:
+            json.dump({"card": card, "kind": kind, "peaks": peak_name,
+                       "core_spmm": rows, "checks": checks}, f, indent=1)
+        print(card, flush=True)
+        print(json.dumps({"partial": ["core_spmm"]}), flush=True)
+        return 0
     build_kernels(cuda_build, out_dir)
 
-    rows, max_err = phase_kernel(torch, np, fs, peaks)
-    for r in rows:
-        print("core_spmm " + json.dumps(r), flush=True)
+    rows, max_err = phase_kernel(torch, fs, peaks)
+    core_checks = phase_core_checks(torch, fs)
     small = phase_small_reference(torch, np)
     run, stegcn_state = phase_trainer(torch, np, card)
 
@@ -1180,6 +1373,7 @@ def main(argv=None) -> int:
     kernels = [{
         "name": fs.core.name, "route": "cuda", "source": fs.core.source,
         "replaces": "laplace_gnn_tpu/ops/pallas_spmm.py:43",
+        "redesigned": "PR 6",
         "launches": run["run_launches"], "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1215,7 +1409,8 @@ def main(argv=None) -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "peaks": peak_name,
-                   "core_spmm": rows, "trainer": run, "small": small,
+                   "core_spmm": rows, "core_spmm_checks": core_checks,
+                   "trainer": run, "small": small,
                    "flash": flash_rows, "gat_step": gat_step,
                    "gat_trainer": gat_run, "gat_small": gat_small,
                    "matmul": mm_rows, "laplace_stegcn": laplace,

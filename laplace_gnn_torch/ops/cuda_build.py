@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` file is compiled on first use for ``sm_90a`` into
 ``laplace_gnn_torch/_build/`` (listed in ``.gitignore``), under a name that
 carries a hash of the source and flags, so an edited source rebuilds and an
-unchanged one is reused. :func:`build` starts one ``nvcc`` per missing
+unchanged one is reused; the hash covers the shared headers
+``csrc/*.cuh`` too. :func:`build` starts one ``nvcc`` per missing
 library, all at once. Nothing here runs at import time.
 """
 
@@ -42,7 +43,13 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built: the name carries a hash of the
+    source, of every shared header ``csrc/*.cuh`` (a source may include
+    any of them) and of the flags."""
     h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 

@@ -13,8 +13,9 @@ O(N^2 d) product
     core(A, t)[i, c] = sum_j bin_diag(A)[j, i] * t[j, c]
 
 is the hand-written CUDA kernel ``csrc/core_spmm.cu`` (which replaces the
-Pallas ``_core_kernel``). :data:`core` launches it for CUDA tensors and
-takes its plain version :func:`core_reference` only for CPU tensors.
+Pallas ``_core_kernel``), one launch a call; :func:`plan` chooses its tile,
+split and copy widths. :data:`core` launches it for CUDA tensors and takes
+its plain version :func:`core_reference` only for CPU tensors.
 
 Gradients. The STE backward is the exact composite of ``_ste_bwd`` /
 ``_norm_bwd``: the degree-normalization term, the masked/sign STE, a zero
@@ -28,14 +29,32 @@ KFAC pullbacks that run through it.
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .cuda_build import load
 
-BM, BK = 64, 64          # the kernel's row tile and reduction step
+BM = 128                  # the kernel's row tile (rows of out)
+SKINNY_BN = (8, 32, 64)   # column tiles for d <= 64: t's columns in one tile
+WIDE_BN = (128, 256)      # column tiles for wider t: 128 up to d = 128
+# the K steps that core_spmm.cu compiles (Layout::BK): skinny tiles take
+# 128 bytes of an f32 A's rows and 64 of an int8 A's; wide tiles 16
+SKINNY_BK = {torch.float32: 32, torch.int8: 64}
+WIDE_BK = 16
+# blocks of each column tile that an SM holds at once: a mirror of
+# Tile::MIN_BLOCKS in core_spmm.cu, its __launch_bounds__ minimum, for
+# which registers are capped and shared memory is sized
+BLOCKS_PER_SM = {8: 2, 32: 2, 64: 2, 128: 2, 256: 1}
+# the ring depth core_spmm.cu compiles (Layout::STAGES), which owns it;
+# reported by the plan, not passed to the kernel
+RING_STAGES = {"skinny": 3, "wide": 4}
+MAX_SPLIT = 8             # the split's blocks form one portable cluster
+MIN_STEPS_PER_SPLIT = 2   # K steps each split keeps at least
+
+
+def _cdiv(x: int, m: int) -> int:
+    return (x + m - 1) // m
 
 
 def core_reference(adj: torch.Tensor, t: torch.Tensor, threshold: float = 0.5,
@@ -52,8 +71,59 @@ def core_reference(adj: torch.Tensor, t: torch.Tensor, threshold: float = 0.5,
     return b.T @ t
 
 
-def _col_tile(d: int) -> int:
-    return 8 if d <= 8 else 16 if d <= 16 else 32 if d <= 32 else 64
+class Plan(NamedTuple):
+    tile: tuple        # (BM, BN, BK): rows of out, columns of out, K step
+    stages: int        # depth of the shared-memory ring (reported only)
+    split: int         # j ranges, one block each, summed in one cluster
+    k_per_split: int   # a multiple of BK; the last range may be shorter
+    vec_a: int         # copy width of A in bytes: 16, 8, 4, 2 or 1
+    vec_t: int         # copy width of t in bytes: 16, 8, 4 or 2
+
+
+def _widest(align: int, widths) -> int:
+    return next(v for v in widths if align % v == 0)
+
+
+def plan(n: int, d: int, a_dtype: torch.dtype, t_dtype: torch.dtype,
+         a_ptr: int, t_ptr: int, sms: int) -> Plan:
+    """How the kernel runs ``core(A, t)`` for an (n, n) A of ``a_dtype`` at
+    ``a_ptr`` and an (n, d) t of ``t_dtype`` at ``t_ptr``, on a card of
+    ``sms`` streaming multiprocessors (132 on an H100 SXM, 114 on a PCIe
+    one).
+
+    - Tile: 128 rows of out; for d <= 64 the smallest skinny column tile
+      of ``SKINNY_BN`` that holds every column (A is read once), else a
+      wide one: 128 columns up to d = 128, 256 beyond.
+    - K step: 128 bytes of an f32 A's rows (32) and 64 of an int8 A's on
+      the skinny tiles, 16 on the wide ones (``SKINNY_BK``, ``WIDE_BK``).
+    - Split: with fewer tiles than one wave of blocks (``BLOCKS_PER_SM``
+      x ``sms``), j is split so the grid fills that wave and no more, at
+      most ``MAX_SPLIT`` ways (one cluster, summed in a fixed order) and
+      with at least ``MIN_STEPS_PER_SPLIT`` K steps a split.
+    - Copy widths: the largest of 16, 8, 4, 2, 1 bytes that divides the
+      pointer and the row length in bytes (n elements of A, d of t)."""
+    if a_dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"core: adj must be float32 or int8, got {a_dtype}")
+    if t_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"core: t must be float32 or bfloat16, got {t_dtype}")
+    a_es, t_es = a_dtype.itemsize, t_dtype.itemsize
+    vec_a = _widest(a_ptr | (n * a_es), (16, 8, 4, 2, 1))
+    vec_t = _widest(t_ptr | (d * t_es), (16, 8, 4, 2, 1))
+    if vec_a < a_es or vec_t < t_es:
+        raise ValueError("core: adj and t must be aligned to their element")
+    wide = d > SKINNY_BN[-1]
+    bn = (WIDE_BN[0] if d <= WIDE_BN[0] else WIDE_BN[1]) if wide else next(
+        b for b in SKINNY_BN if b >= d)
+    bk = WIDE_BK if wide else SKINNY_BK[a_dtype]
+    k_steps = _cdiv(n, bk)
+    tiles = _cdiv(n, BM) * _cdiv(d, bn)
+    split = max(1, min(MAX_SPLIT, BLOCKS_PER_SM[bn] * sms // tiles,
+                       k_steps // MIN_STEPS_PER_SPLIT))
+    k_per_split = _cdiv(k_steps, split) * bk
+    return Plan(tile=(BM, bn, bk),
+                stages=RING_STAGES["wide" if wide else "skinny"],
+                split=_cdiv(n, k_per_split), k_per_split=k_per_split,
+                vec_a=vec_a, vec_t=vec_t)
 
 
 class CoreKernel:
@@ -74,8 +144,8 @@ class CoreKernel:
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                             ctypes.c_int, ctypes.c_void_p]
-                           + [ctypes.c_int] * 4 + [ctypes.c_float]
-                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 7 + [ctypes.c_float]
+                           + [ctypes.c_int] * 2 + [ctypes.c_void_p])
             self._fn = fn
         return self._fn
 
@@ -88,18 +158,6 @@ class CoreKernel:
             raise ValueError(f"core: adj on {adj.device} and t on {t.device};"
                              " both must be on one CUDA device or the CPU")
         return self._launch(adj, t, threshold, binarize, transpose)
-
-    def split(self, n: int, d: int, device) -> tuple[int, int]:
-        """(splits, k_per_split) of the reduction axis: enough blocks for
-        about two per SM."""
-        if device not in self._sms:
-            self._sms[device] = torch.cuda.get_device_properties(
-                device).multi_processor_count
-        blocks = math.ceil(n / BM) * math.ceil(d / _col_tile(d))
-        splits = max(1, min(math.ceil(2 * self._sms[device] / blocks),
-                            math.ceil(n / BK)))
-        k = math.ceil(math.ceil(n / splits) / BK) * BK
-        return math.ceil(n / k), k
 
     def _launch(self, adj, t, threshold, binarize, transpose):
         if adj.dtype not in (torch.float32, torch.int8):
@@ -114,26 +172,27 @@ class CoreKernel:
         if not (adj.is_contiguous() and t.is_contiguous()):
             raise ValueError("core: adj and t must be contiguous")
         n, d = t.shape
-        if n * n >= 2 ** 62 or d >= 2 ** 31:
+        if n * n >= 2 ** 62 or n * d >= 2 ** 62 or d >= 2 ** 31:
             raise ValueError("core: shape too large")
-        out = torch.zeros((n, d), dtype=torch.float32, device=t.device)
+        # written once by the kernel, in t's dtype: no zero fill, no cast
+        out = torch.empty((n, d), dtype=t.dtype, device=t.device)
         if n == 0 or d == 0:
-            return out.to(t.dtype)
-        splits, k = self.split(n, d, t.device)
-        # 16-byte loads along A's rows and t's rows where they are aligned
-        vec_a = n % 4 == 0 and adj.data_ptr() % 16 == 0
-        vec_t = (d % 4 == 0 and t.dtype == torch.float32
-                 and t.data_ptr() % 16 == 0)
+            return out
+        if t.device not in self._sms:
+            self._sms[t.device] = torch.cuda.get_device_properties(
+                t.device).multi_processor_count
+        p = plan(n, d, adj.dtype, t.dtype, adj.data_ptr(), t.data_ptr(),
+                 self._sms[t.device])
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = self._entry()(
             adj.data_ptr(), int(adj.dtype == torch.int8), t.data_ptr(),
-            int(t.dtype == torch.bfloat16), out.data_ptr(), n, d, splits, k,
-            float(threshold), int(binarize), int(transpose), int(vec_a),
-            int(vec_t), stream)
+            int(t.dtype == torch.bfloat16), out.data_ptr(), n, d, p.tile[1],
+            p.split, p.k_per_split, p.vec_a, p.vec_t, float(threshold),
+            int(binarize), int(transpose), stream)
         if rc != 0:
             raise RuntimeError(f"core_spmm launch failed with CUDA error {rc}")
         self.launches += 1
-        return out if t.dtype == torch.float32 else out.to(t.dtype)
+        return out
 
 
 core = CoreKernel()

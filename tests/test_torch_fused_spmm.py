@@ -4,6 +4,9 @@ On the CPU the JAX op reaches its plain core ``_core_xla`` and the port's
 wrapper takes its plain version ``core_reference``; both compute in
 float64 here, so composed math agrees to 1e-10 absolute."""
 
+import itertools
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -175,13 +178,178 @@ def test_static_int8_op_matches_jax():
                                atol=ATOL)
 
 
-@pytest.mark.cuda
-def test_core_kernel_on_card_matches_reference():
-    """The CUDA kernel against its plain version (bf16 operands, f32 sums).
-    A binarized B is exact, so only t's rounding to bf16 errs:
+# ---------------------------------------------------------------------------
+# the kernel's launch plan (pure: shapes, dtypes, pointers, SM count)
+# ---------------------------------------------------------------------------
+
+SMS = 132
+F32, I8, BF16 = torch.float32, torch.int8, torch.bfloat16
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("n,d,a_dtype", [
+    (2708, 64, F32), (2708, 7, F32), (2708, 64, I8), (2708, 65, F32),
+    (2707, 1, F32), (300, 64, F32), (16384, 64, I8), (2708, 12250, F32)],
+    ids=lambda x: str(x).replace("torch.", ""))
+def test_plan_split_fills_one_wave_of_the_card(n, d, a_dtype, sms):
+    """The split's blocks fill one wave of the card's own SM count (an H100
+    PCIe has 114, where a split sized for 132 would spill into a second
+    wave), and no larger split would fit it and the limits."""
+    p = T.plan(n, d, a_dtype, F32, 0, 0, sms)
+    wave = T.BLOCKS_PER_SM[p.tile[1]] * sms
+    tiles = -(-n // p.tile[0]) * -(-d // p.tile[1])
+    k_steps = -(-n // p.tile[2])
+    assert 1 <= p.split <= T.MAX_SPLIT
+    if p.split > 1:
+        assert tiles * p.split <= wave
+    if p.split < min(T.MAX_SPLIT, k_steps // T.MIN_STEPS_PER_SPLIT):
+        assert tiles * (p.split + 1) > wave
+
+
+def test_plan_splits_the_trainer_shapes_eight_ways_at_132_sms():
+    """22 row tiles x 8 = 176 blocks, within two an SM; the wide calls and
+    N = 16384 have tiles enough."""
+    for d in (64, 7):
+        for a_dtype in (F32, I8):
+            p = T.plan(2708, d, a_dtype, F32, 0, 0, SMS)
+            assert p.split == 8 and 22 * p.split <= 2 * SMS
+    assert T.plan(16384, 64, I8, F32, 0, 0, SMS).split == 2
+    assert T.plan(2708, 112000, F32, F32, 0, 0, SMS).split == 1
+
+
+@pytest.mark.parametrize("d,bn", [
+    (1, 8), (7, 8), (8, 8), (9, 32), (32, 32), (33, 64), (64, 64),
+    (65, 128), (128, 128), (129, 256), (12250, 256), (112000, 256)])
+def test_plan_tile_is_skinny_up_to_64_columns_and_wide_after(d, bn):
+    for a_dtype in (F32, I8):
+        p = T.plan(2708, d, a_dtype, F32, 0, 0, SMS)
+        assert p.tile[:2] == (T.BM, bn)
+        if bn in T.WIDE_BN:
+            assert p.tile[2] == T.WIDE_BK
+            assert p.stages == T.RING_STAGES["wide"]
+        else:
+            assert p.tile[2] == T.SKINNY_BK[a_dtype]
+            assert p.stages == T.RING_STAGES["skinny"]
+
+
+@pytest.mark.parametrize("a_dtype,bk,step_bytes", [(F32, 32, 128),
+                                                   (I8, 64, 64)],
+                         ids=["f32", "int8"])
+def test_plan_skinny_k_step_in_bytes_of_a_row(a_dtype, bk, step_bytes):
+    """An f32 A moves 128 bytes of each row a step; int8 takes 64 (its
+    64 rows of f32 t keep two blocks an SM, which beat one block with
+    128-byte int8 steps on the card)."""
+    for d in (1, 7, 64):
+        p = T.plan(2708, d, a_dtype, F32, 0, 0, SMS)
+        assert p.tile[2] == bk
+        assert p.tile[2] * a_dtype.itemsize == step_bytes
+
+
+def _offset(n, m, dtype):
+    """A contiguous (n, m) view one element into its buffer."""
+    return torch.zeros(n * m + 1, dtype=dtype)[1:].view(n, m)
+
+
+# (name, A, t, (vec_a, vec_t))
+ALIGN = [
+    ("f32_n2708", lambda: torch.zeros(2708, 2708), lambda: torch.zeros(2708, 64),
+     (16, 16)),
+    ("f32_n2707", lambda: torch.zeros(2707, 2707), lambda: torch.zeros(2707, 7),
+     (4, 4)),
+    ("f32_n2706", lambda: torch.zeros(2706, 2706),
+     lambda: torch.zeros(2706, 12250), (8, 8)),
+    ("f32_a_offset", lambda: _offset(2708, 2708, F32),
+     lambda: torch.zeros(2708, 64), (4, 16)),
+    ("f32_t_offset", lambda: torch.zeros(2708, 2708),
+     lambda: _offset(2708, 64, F32), (16, 4)),
+    ("int8_n2708", lambda: torch.zeros(2708, 2708, dtype=I8),
+     lambda: torch.zeros(2708, 64), (4, 16)),
+    ("int8_n16384", lambda: torch.zeros(16384, 16384, dtype=I8),
+     lambda: torch.zeros(16384, 64), (16, 16)),
+    ("int8_n2707", lambda: torch.zeros(2707, 2707, dtype=I8),
+     lambda: torch.zeros(2707, 64), (1, 16)),
+    ("int8_n2706", lambda: torch.zeros(2706, 2706, dtype=I8),
+     lambda: torch.zeros(2706, 64), (2, 16)),
+    ("bf16_t_d7", lambda: torch.zeros(2708, 2708),
+     lambda: torch.zeros(2708, 7, dtype=BF16), (16, 2)),
+    ("bf16_t_d64", lambda: torch.zeros(2708, 2708),
+     lambda: torch.zeros(2708, 64, dtype=BF16), (16, 16)),
+]
+
+
+@pytest.mark.parametrize("name,make_a,make_t,vecs", ALIGN,
+                         ids=[c[0] for c in ALIGN])
+def test_plan_copy_width_follows_pointers_and_row_length(name, make_a,
+                                                         make_t, vecs):
+    a, t = make_a(), make_t()
+    assert a.is_contiguous() and t.is_contiguous()
+    p = T.plan(a.shape[0], t.shape[1], a.dtype, t.dtype, a.data_ptr(),
+               t.data_ptr(), SMS)
+    assert (p.vec_a, p.vec_t) == vecs
+
+
+@pytest.mark.parametrize("n", [1, 31, 40, 127, 128, 129, 2707, 2708, 16384])
+def test_plan_j_ranges_are_whole_steps_and_none_empty(n):
+    for d, a_dtype in itertools.product((1, 7, 64, 65, 300), (F32, I8)):
+        p = T.plan(n, d, a_dtype, F32, 0, 0, SMS)
+        bk = p.tile[2]
+        assert p.k_per_split % bk == 0
+        assert (p.split - 1) * p.k_per_split < n <= p.split * p.k_per_split
+        if p.split > 1:
+            assert p.k_per_split >= T.MIN_STEPS_PER_SPLIT * bk
+
+
+def test_plan_rejects_other_dtypes_and_misaligned_f32():
+    with pytest.raises(TypeError, match="float32 or int8"):
+        T.plan(4, 4, torch.float64, F32, 0, 0, SMS)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        T.plan(4, 4, F32, torch.float16, 0, 0, SMS)
+    with pytest.raises(ValueError, match="aligned"):
+        T.plan(4, 4, F32, F32, 2, 0, SMS)
+
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edited header rebuilds every source (each may include it): the
+    library's name changes with it."""
+    from laplace_gnn_torch.ops import cuda_build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda_build, "SRC_DIR", tmp_path)
+    before = cuda_build.library_path("k")
+    assert before == cuda_build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    after = cuda_build.library_path("k")
+    assert after != before and after.name.startswith("libk_")
+    # the repository's kernels do include the shared header
+    src = Path(T.__file__).resolve().parent.parent / "csrc"
+    for name in ("core_spmm", "matmul"):
+        assert '#include "sm90_mma.cuh"' in (src / f"{name}.cu").read_text()
+
+
+def _card_check(a, t, binarize, transpose, exact=False):
+    """The kernel against its plain version, and a second call to the same
+    bits. A binarized B is exact, so only t's rounding to bf16 errs:
     |err| <= 2^-9 |B|^T|t|, checked at 2^-8. A raw float A rounds too:
     checked at 2^-7 |A|^T|t|. An int8 0/1 A with t exactly representable
     in bf16 is exact."""
+    got = T.core(a, t, 0.5, binarize, transpose)
+    assert torch.equal(got, T.core(a, t, 0.5, binarize, transpose))
+    ref = T.core_reference(a, t, 0.5, binarize, transpose)
+    torch.cuda.synchronize()
+    assert got.dtype == t.dtype and got.shape == t.shape
+    if exact:
+        assert torch.equal(got, ref)
+        return
+    bound = T.core_reference(a.abs() if a.is_floating_point() else a,
+                             t.abs(), 0.5, binarize, transpose).float()
+    tol = (2.0 ** -8 if binarize else 2.0 ** -7) * bound + 1e-5
+    assert bool(((got.float() - ref.float()).abs() <= tol).all()), \
+        (tuple(a.shape), tuple(t.shape), binarize, transpose)
+
+
+@pytest.mark.cuda
+def test_core_kernel_on_card_matches_reference():
+    """Skinny and wide tiles, both orientations, the three A modes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     rng = np.random.default_rng(0)
@@ -195,16 +363,47 @@ def test_core_kernel_on_card_matches_reference():
                             device="cuda")
         for binarize in (True, False):
             for transpose in (False, True):
-                got = T.core(a, t, 0.5, binarize, transpose)
-                ref = T.core_reference(a, t, 0.5, binarize, transpose)
-                bound = T.core_reference(a.abs(), t.abs(), 0.5, binarize,
-                                         transpose)
-                tol = (2.0 ** -8 if binarize else 2.0 ** -7) * bound + 1e-5
-                torch.cuda.synchronize()
-                assert bool(((got - ref).abs() <= tol).all()), \
-                    (d, binarize, transpose)
+                _card_check(a, t, binarize, transpose)
         tq = torch.round(t * 4) / 4
         for transpose in (False, True):
-            got = T.core(a8, tq, binarize=False, transpose=transpose)
-            ref = T.core_reference(a8, tq, binarize=False, transpose=transpose)
-            assert torch.equal(got, ref)
+            _card_check(a8, tq, False, transpose, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "n2707", "n40", "a_offset_view", "a_sub_view", "t_offset_view", "d1",
+    "d65", "d129", "bf16_t", "int8_n2707"])
+def test_core_kernel_on_card_edge_cases(case):
+    """Rows with no 16-byte copy (N = 2707), fewer rows than one tile,
+    views one element into their buffers, d = 1 / 65 / 129, a bf16 t and
+    odd-length int8 rows; the trainer's width splits j (asserted), and
+    every call repeats to the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n = {"n2707": 2707, "n40": 40, "int8_n2707": 2707}.get(case, 2708)
+    d = {"d1": 1, "d65": 65, "d129": 129, "n40": 7}.get(case, 64)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand(n, n, generator=g, device="cuda")
+    a = torch.where(a < 0.1, torch.full_like(a, 0.5), a)
+    t = torch.randn(n * d + 1, generator=g, device="cuda")
+    t = t[1:].view(n, d) if case == "t_offset_view" else t[:n * d].view(n, d)
+    if case == "a_offset_view":
+        buf = torch.empty(n * n + 1, device="cuda")
+        buf[1:].copy_(a.reshape(-1))
+        a = buf[1:].view(n, n)
+    elif case == "a_sub_view":
+        a, t = a[1:, 1:].contiguous(), t[1:].contiguous()
+    elif case == "bf16_t":
+        t = t.to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = T.plan(a.shape[0], d, a.dtype, t.dtype, a.data_ptr(), t.data_ptr(),
+               sms)
+    if case == "n2707":
+        assert p.split >= 2 and p.vec_a == 4
+    for transpose in (False, True):
+        if case == "int8_n2707":
+            _card_check((a > 0.5).to(torch.int8), torch.round(t * 8) / 8,
+                        False, transpose, exact=True)
+        else:
+            _card_check(a, t, True, transpose)
+            _card_check(a, t, False, transpose)
