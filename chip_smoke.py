@@ -4,6 +4,7 @@
     python3 chip_smoke.py                   # every phase: the port's proof
     python3 chip_smoke.py --only matmul     # build + phase 7, kernel work
     python3 chip_smoke.py --only core_spmm  # build + phase 2, kernel work
+    python3 chip_smoke.py --only flash      # build + phase 4, kernel work
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
@@ -31,10 +32,14 @@ Phases, each fatal:
      one bf16 and one row-shard case, the last with a target row that has
      no neighbour) and time them beside the plain
      versions and the composed chunked attention (forward and autograd
-     backward);
+     backward); then check, untimed, the edge cases of FLASH_CHECKS (N =
+     2707 and 40, offset views, H = 1, 3, 16 and 256, F = 5 and 64, bf16,
+     a banded graph, underflowing scores, a row shard); m must be exact
+     and every call is repeated and must give the same bits;
   5. time one GAT train step at N = 16384 (d = 64, hidden 64, 8 heads,
      concat, 8 classes, Erdos-Renyi density 14e-4) through the kernels, with
-     its launches (2 forward + 2 backward) and profile, beside the same step
+     its launches (2 forward + 2 backward) and profile (device launches,
+     the flash kernels' device time by kernel name), beside the same step
      on the plain chunked attention;
   6. run the GAT marglik trainer (``model_type="gat"``, flash kernels) at
      N = 2708 for 4 epochs with every launch counter set to 0 just before
@@ -76,7 +81,8 @@ Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
 it runs phases 1 (``matmul.cu`` alone) and 7, and its last line is
 ``{"partial": ["matmul"]}``, never the ``ok`` line; ``--only
-core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2. Exits
+core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2, and
+``--only flash`` phases 1 (``flash_attention.cu`` alone) and 4. Exits
 non-zero, with no result, when there is no CUDA device or the package is
 not beside it.
 Per-shape measurements also go to ``chiprun_out/chip_smoke.json``, and
@@ -198,6 +204,8 @@ def profile_step(torch, fn, top: int = 8) -> dict:
             "n_kernels": sum(r[2] for r in rows),
             "core_spmm_ms": core_ms,
             "core_spmm_share": core_ms / device_ms if device_ms else 0.0,
+            "flash": [{"name": k[:70], "ms": ms, "count": c}
+                      for k, ms, c in rows if "flash" in k],
             "top": [{"name": k[:70], "ms": ms, "count": c}
                     for k, ms, c in rows[:top]]}
 
@@ -627,15 +635,59 @@ def flash_bound(n, r, heads, f, nnz, adj_bytes, bw, backward):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_check(torch, fa, a_src, a_dst, mask, h, gout, attn, label):
+    """Both flash kernels against their plain versions on one input:
+    (forward outputs, reference forward outputs, backward outputs, errors,
+    failures). The backward takes the reference (out, m, l). float32
+    results within 1e-4 of the largest reference entry (sums in another
+    order: an online softmax with rescaling, split partials merged in a
+    fixed order), bf16 operands within 2^-7 of it; m is a max and must be
+    exact; a second call of each kernel must give the same bits."""
+    tol = 2.0 ** -7 if attn else 1e-4
+    got = fa.flash_fwd(a_src, a_dst, mask, h, 0.2, attn)
+    again = fa.flash_fwd(a_src, a_dst, mask, h, 0.2, attn)
+    want = fa.flash_fwd_reference(a_src, a_dst, mask, h, 0.2, attn)
+    got_b = fa.flash_bwd(a_src, a_dst, mask, h, gout, *want, 0.2, attn)
+    again_b = fa.flash_bwd(a_src, a_dst, mask, h, gout, *want, 0.2, attn)
+    want_b = fa.flash_bwd_reference(a_src, a_dst, mask, h, gout, *want,
+                                    0.2, attn)
+    torch.cuda.synchronize()
+    errs, failures = {}, []
+    for kern, names, xs, ys, zs in (
+            ("flash_fwd", ("out", "m", "l"), got, want, again),
+            ("flash_bwd", ("d_a_src", "d_a_dst", "d_h"), got_b, want_b,
+             again_b)):
+        for name, x, y, z in zip(names, xs, ys, zs):
+            err = float((x - y).abs().max())
+            scale = float(y.abs().max())
+            errs[f"{kern}.{name}"] = err
+            if not (bool(torch.isfinite(x).all())
+                    and err <= tol * scale + 1e-6):
+                failures.append(f"{kern} {label}: {name} max err {err} "
+                                f"(scale {scale})")
+            if name == "m" and not torch.equal(x, y):
+                failures.append(f"{kern} {label}: m differs from the plain "
+                                f"m by {err}")
+            if not torch.equal(x, z):
+                failures.append(f"{kern} {label}: {name} differs between "
+                                "two calls")
+    return got, want, got_b, errs, failures
+
+
+def flash_plans(fa, n, r, heads, f, mask, sms):
+    return {d: fa.plan(n, r, heads, f, mask.dtype, mask.data_ptr(), sms,
+                       d == "bwd")._asdict() for d in ("fwd", "bwd")}
+
+
 def phase_flash_kernels(torch, np, fa, bw):
     """Both flash kernels against their plain versions at the GAT path's
-    shapes, timed beside the plain versions and the composed chunked
-    attention. Tolerances: float32 results within 1e-4 of the largest
-    reference entry (the kernels sum in another order: an online softmax
-    with rescaling, and float32 atomics for d_a_dst; m is a max and comes
-    out exact); bf16 operands within 2^-7 of it."""
+    shapes (``flash_check``), timed beside the plain versions and the
+    composed chunked attention. Every case runs before the failures, if
+    any, are raised together."""
     from laplace_gnn_torch.models.layers import _masked_attention_chunked
     rows, max_err = [], {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    failures = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []
     for n in (GAT_N_KERNEL, GAT_N_TRAIN):
         for f in (GAT_HIDDEN // GAT_HEADS, GAT_CLASSES // GAT_HEADS):
@@ -664,33 +716,21 @@ def phase_flash_kernels(torch, np, fa, bw):
         a_dst = torch.randn(r, H, generator=g, device="cuda")
         h = torch.randn(n, H, f, generator=g, device="cuda")
         gout = torch.randn(r, H, f, generator=g, device="cuda")
-        tol = 2.0 ** -7 if attn else 1e-4
-        got = fa.flash_fwd(a_src, a_dst, mask, h, 0.2, attn)
-        want = fa.flash_fwd_reference(a_src, a_dst, mask, h, 0.2, attn)
-        got_b = fa.flash_bwd(a_src, a_dst, mask, h, gout, *want, 0.2, attn)
-        want_b = fa.flash_bwd_reference(a_src, a_dst, mask, h, gout, *want,
-                                        0.2, attn)
-        torch.cuda.synchronize()
-        errs = {}
-        for kern, pairs in (("flash_fwd", zip(("out", "m", "l"), got, want)),
-                            ("flash_bwd", zip(("d_a_src", "d_a_dst", "d_h"),
-                                              got_b, want_b))):
-            for name, x, y in pairs:
-                err = float((x - y).abs().max())
-                scale = float(y.abs().max())
-                if not (bool(torch.isfinite(x).all())
-                        and err <= tol * scale + 1e-6):
-                    raise AssertionError(f"{kern} {case} n={n} f={f}: {name} "
-                                         f"max err {err} (scale {scale})")
-                errs[f"{kern}.{name}"] = err
-                if attn is None:
-                    max_err[kern] = max(max_err[kern], err)
+        got, want, got_b, errs, fails = flash_check(
+            torch, fa, a_src, a_dst, mask, h, gout, attn,
+            f"{case} n={n} f={f}")
+        failures += fails
+        if attn is None:
+            for k, v in errs.items():
+                kern = k.split(".")[0]
+                max_err[kern] = max(max_err[kern], v)
         if case == "row_shard" and not (
                 float(got[0][ISO_ROW].abs().max()) == 0.0
                 and float(got[2][:, ISO_ROW].abs().max()) == 0.0
                 and float(got_b[1][ISO_ROW].abs().max()) == 0.0):
-            raise AssertionError("a row with no neighbour must give out = 0, "
-                                 "l = 0 and d_a_dst = 0")
+            failures.append("a row with no neighbour must give out = 0, "
+                            "l = 0 and d_a_dst = 0")
+        plans = flash_plans(fa, n, r, H, f, mask, sms)
         nnz = int((adj > 0).sum())
         adj_bytes = r * n * mask.element_size()
         # the composed path: the chunked attention and its autograd backward
@@ -718,16 +758,121 @@ def phase_flash_kernels(torch, np, fa, bw):
             rows.append({
                 "kernel": kern, "case": case, "n": n, "r": r, "heads": H,
                 "f": f, "adj": mask_t, "attn_dtype": attn, "nnz": nnz,
+                "plan": plans["bwd" if bwd else "fwd"],
                 "ms": cold_ms(torch, run), "plain_ms": cold_ms(torch, plain,
                                                                reps=3),
                 "composed_ms": comp_bwd if bwd else comp_fwd,
                 "bound_ms": bound, "bound_by": by, "library_ms": None,
                 "errors": {k: v for k, v in errs.items()
                            if k.startswith(kern)}})
+            print(f"{kern} " + json.dumps(rows[-1]), flush=True)
     graphs.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
     return rows, max_err
+
+
+# edge cases of both flash kernels, checked against the plain versions by
+# flash_check, untimed: (case, N, heads, F, mask, attn_dtype, variant).
+# N = 2707 has no 16-byte rows (f32: 4-byte copies; int8: 1-byte loads),
+# N = 40 is under one tile; adj[1:] starts one row into its buffer,
+# a_offset one element (4-byte copies); H and F at and inside the edges of
+# the domain; bf16 operands at Cora's size; a banded graph, where most
+# splits of a row hold no edge; source columns with a_src = -80 and -800
+# (exp underflows to 0); a row shard with a row that has no edge
+FLASH_CHECKS = [
+    ("n=2707", 2707, 8, 8, "float32", None, None),
+    ("n=2707", 2707, 8, 1, "int8", None, None),
+    ("n=40", 40, 8, 8, "float32", None, None),
+    ("n=40", 40, 3, 5, "int8", None, None),
+    ("adj[1:]", N_NODES, 8, 8, "float32", None, "rows_from_1"),
+    ("a_offset", N_NODES, 8, 8, "float32", None, "a_offset"),
+    ("h=1", N_NODES, 1, 8, "float32", None, None),
+    ("h=3", N_NODES, 3, 8, "float32", None, None),
+    ("h=16", N_NODES, 16, 8, "int8", None, None),
+    ("h=256", 300, 256, 2, "float32", None, None),
+    ("f=5", N_NODES, 8, 5, "float32", None, None),
+    ("f=64", N_NODES, 8, 64, "float32", None, None),
+    ("bf16", N_NODES, 8, 8, "float32", "bfloat16", None),
+    ("banded", N_NODES, 8, 8, "float32", None, "banded"),
+    ("a_src=-80", N_NODES, 8, 8, "float32", None, "underflow"),
+    ("row_shard", N_NODES, 8, 8, "float32", None, "row_shard"),
+]
+
+
+def flash_check_inputs(torch, n, heads, f, mask_t, variant):
+    """(a_src, a_dst, mask, h, gout) of one FLASH_CHECKS case, made on the
+    card: a symmetric random graph with self-loops at ~10 edges a row (N =
+    40: 15% density), or a band of 8 on each side."""
+    g = torch.Generator(device="cuda").manual_seed(n * 7 + heads + f)
+    if variant == "banded":
+        i = torch.arange(n, device="cuda")
+        adj = ((i[:, None] - i[None, :]).abs() <= 8) & (
+            torch.rand(n, n, generator=g, device="cuda") < 0.4)
+    else:
+        adj = torch.rand(n, n, generator=g, device="cuda") < (
+            0.15 if n < 100 else 10.0 / n)
+    adj = (adj | adj.T).float()
+    adj.fill_diagonal_(1.0)
+    r = n
+    if variant == "rows_from_1":              # rows 1.. of the buffer
+        adj, r = adj[1:], n - 1
+    elif variant == "row_shard":
+        r = n // 3
+        adj = adj[:r].clone()
+        adj[ISO_ROW] = 0.0
+    mask = (adj > 0).to(torch.int8) if mask_t == "int8" else adj
+    if variant == "a_offset":                 # one element into its buffer
+        buf = torch.empty(mask.numel() + 1, dtype=mask.dtype, device="cuda")
+        buf[1:].copy_(mask.reshape(-1))
+        mask = buf[1:].view(mask.shape)
+    elif variant != "rows_from_1":
+        mask = mask.contiguous()
+    a_src = torch.randn(n, heads, generator=g, device="cuda")
+    if variant == "underflow":
+        a_src[5] = -80.0
+        a_src[6] = -800.0
+    a_dst = torch.randn(r, heads, generator=g, device="cuda")
+    h = torch.randn(n, heads, f, generator=g, device="cuda")
+    gout = torch.randn(r, heads, f, generator=g, device="cuda")
+    return a_src, a_dst, mask, h, gout
+
+
+def phase_flash_checks(torch, fa):
+    """The flash kernels' edge cases (FLASH_CHECKS) against the plain
+    versions, untimed, by ``flash_check``; at least one case must split
+    each kernel's walked axis. All cases run before the failures, if any,
+    are raised together."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, failures = [], []
+    for case, n, heads, f, mask_t, attn, variant in FLASH_CHECKS:
+        a_src, a_dst, mask, h, gout = flash_check_inputs(
+            torch, n, heads, f, mask_t, variant)
+        label = f"{case} n={n} h={heads} f={f} {mask_t}"
+        got, _, got_b, errs, fails = flash_check(
+            torch, fa, a_src, a_dst, mask, h, gout, attn, label)
+        if variant == "row_shard" and not (
+                float(got[0][ISO_ROW].abs().max()) == 0.0
+                and float(got[2][:, ISO_ROW].abs().max()) == 0.0
+                and float(got_b[1][ISO_ROW].abs().max()) == 0.0):
+            fails.append(f"{label}: a row with no neighbour must give "
+                         "out = 0, l = 0 and d_a_dst = 0")
+        failures += fails
+        plans = flash_plans(fa, n, a_dst.shape[0], heads, f, mask, sms)
+        out.append({"case": case, "n": n, "r": a_dst.shape[0],
+                    "heads": heads, "f": f, "adj": mask_t,
+                    "attn_dtype": attn, "plans": plans, "errors": errs,
+                    "ok": not fails})
+        print("flash check " + json.dumps(out[-1]), flush=True)
+    for d in ("fwd", "bwd"):
+        if not any(r["plans"][d]["split"] > 1 for r in out):
+            failures.append(f"flash_{d}: no checked case split its axis")
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
 
 
 def gat_model(torch, X, adj, impl, n_layers=2, **kw):
@@ -796,6 +941,7 @@ def phase_gat_step(torch, card):
         for r in prof["top"]:
             print(f"  {r['ms']:8.3f} ms x{r['count']:<4d} {r['name']}",
                   flush=True)
+        print("  flash kernels: " + json.dumps(prof["flash"]), flush=True)
         del model, progs
     del X, adj
     torch.cuda.empty_cache()
@@ -1297,7 +1443,7 @@ def build_kernels(cuda_build, out_dir, names=None):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["matmul", "core_spmm"],
+    parser.add_argument("--only", choices=["matmul", "core_spmm", "flash"],
                         help="build and run this kernel's phase alone; "
                              "prints no ok line")
     args = parser.parse_args(argv)
@@ -1345,6 +1491,16 @@ def main(argv=None) -> int:
         print(card, flush=True)
         print(json.dumps({"partial": ["core_spmm"]}), flush=True)
         return 0
+    if args.only == "flash":
+        build_kernels(cuda_build, out_dir, ["flash_attention"])
+        rows, _ = phase_flash_kernels(torch, np, fa, peaks[0])
+        checks = phase_flash_checks(torch, fa)
+        with open(os.path.join(out_dir, "chip_smoke_flash.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "peaks": peak_name,
+                       "flash": rows, "checks": checks}, f, indent=1)
+        print(card, flush=True)
+        print(json.dumps({"partial": ["flash"]}), flush=True)
+        return 0
     build_kernels(cuda_build, out_dir)
 
     rows, max_err = phase_kernel(torch, fs, peaks)
@@ -1353,8 +1509,7 @@ def main(argv=None) -> int:
     run, stegcn_state = phase_trainer(torch, np, card)
 
     flash_rows, flash_err = phase_flash_kernels(torch, np, fa, peaks[0])
-    for r in flash_rows:
-        print(f"{r['kernel']} " + json.dumps(r), flush=True)
+    flash_checks = phase_flash_checks(torch, fa)
     gat_step = phase_gat_step(torch, card)
     gat_run, gat_state = phase_gat_trainer(torch, np, fa, card)
     gat_small = phase_gat_small_reference(torch, np)
@@ -1388,7 +1543,7 @@ def main(argv=None) -> int:
                  and x["f"] == 8)
         kernels.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
-            "replaces": replaces,
+            "replaces": replaces, "redesigned": "PR 7",
             "launches": gat_run["run_launches"][kern.name],
             "max_abs_err": flash_err[kern.name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1411,7 +1566,8 @@ def main(argv=None) -> int:
         json.dump({"card": card, "kind": kind, "peaks": peak_name,
                    "core_spmm": rows, "core_spmm_checks": core_checks,
                    "trainer": run, "small": small,
-                   "flash": flash_rows, "gat_step": gat_step,
+                   "flash": flash_rows, "flash_checks": flash_checks,
+                   "gat_step": gat_step,
                    "gat_trainer": gat_run, "gat_small": gat_small,
                    "matmul": mm_rows, "laplace_stegcn": laplace,
                    "laplace_small": laplace_small,

@@ -142,35 +142,6 @@ struct Layout {
 
 // ---- copies ----
 
-// 16 bytes of shared memory from `src`, of which the first `avail` bytes
-// lie inside the matrix and the rest read 0, in copies of VEC bytes:
-// cp.async for 16, 8 or 4 (src-size zero-fills), guarded register loads
-// for 2 or 1.
-template <int VEC>
-__device__ __forceinline__ void fill16(unsigned char* dst,
-                                       const unsigned char* src, int avail,
-                                       const void* base) {
-  avail = avail < 0 ? 0 : (avail > 16 ? 16 : avail);
-  if constexpr (VEC >= 4) {
-#pragma unroll
-    for (int q = 0; q < 16 / VEC; ++q) {
-      const int a = min(max(avail - VEC * q, 0), VEC);
-      cp_async<VEC>(dst + VEC * q, a > 0 ? src + VEC * q : base, a);
-    }
-  } else {
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int e = 0; e < 16 / VEC; ++e) {
-      if (VEC * e >= avail) break;
-      const uint32_t v = VEC == 2
-          ? __ldg(reinterpret_cast<const unsigned short*>(src) + e)
-          : __ldg(src + e);
-      w[e * VEC / 4] |= v << (8 * ((e * VEC) % 4));
-    }
-    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
 // The 16-byte chunks of a (rows x row_bytes) tile of a row-major matrix
 // into a stage of row stride ld_bytes, THREADS threads each taking every
 // (THREADS / chunks a row)-th row at one column: row r of the tile is

@@ -1,6 +1,7 @@
-// PTX wrappers shared by the port's tensor-core kernels (matmul.cu,
-// core_spmm.cu): cp.async copies into shared memory, ldmatrix fragment
-// loads and the mma.sync products they feed. Header-only; every function is
+// PTX wrappers shared by the port's kernels (matmul.cu, core_spmm.cu,
+// flash_attention.cu): cp.async copies into shared memory (and fill16, 16
+// bytes of a row at any copy width), ldmatrix fragment loads and the
+// mma.sync products they feed. Header-only; every function is
 // inline. The build hashes this file with each source that includes it
 // (ops/cuda_build.py::library_path), so an edit here rebuilds both.
 
@@ -36,6 +37,35 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 16 bytes of shared memory from `src`, of which the first `avail` bytes
+// lie inside the matrix and the rest read 0, in copies of VEC bytes:
+// cp.async for 16, 8 or 4 (src-size zero-fills), guarded register loads
+// for 2 or 1.
+template <int VEC>
+__device__ __forceinline__ void fill16(unsigned char* dst,
+                                       const unsigned char* src, int avail,
+                                       const void* base) {
+  avail = avail < 0 ? 0 : (avail > 16 ? 16 : avail);
+  if constexpr (VEC >= 4) {
+#pragma unroll
+    for (int q = 0; q < 16 / VEC; ++q) {
+      const int a = min(max(avail - VEC * q, 0), VEC);
+      cp_async<VEC>(dst + VEC * q, a > 0 ? src + VEC * q : base, a);
+    }
+  } else {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 16 / VEC; ++e) {
+      if (VEC * e >= avail) break;
+      const uint32_t v = VEC == 2
+          ? __ldg(reinterpret_cast<const unsigned short*>(src) + e)
+          : __ldg(src + e);
+      w[e * VEC / 4] |= v << (8 * ((e * VEC) % 4));
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

@@ -32,7 +32,7 @@ contractions to bf16, with float32 sums; the softmax stays in float32.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,8 +40,24 @@ from .cuda_build import load
 
 NEG_BIG = -1e30          # floor of the running max, as in the TPU kernel
 ROW_BLOCK = 256          # target rows per block of the plain versions
-THREADS = 256            # threads per block of both kernels
+THREADS = 256            # threads of a backward block; a forward one at most
 MAX_F = 64               # widest per-head feature axis the kernels take
+MAX_SPLIT = 8            # a split's blocks form one portable cluster
+# mirrors of what csrc/flash_attention.cu compiles, which owns them:
+FWD_MAX_ROWS = 8         # target rows a forward block, at most
+FWD_ROW_BYTES = 1024     # bytes of each adjacency row in a forward tile
+BWD_MAX_COLS = 128       # source columns a backward block, at most
+BWD_TILE_ROWS = {torch.float32: 64, torch.int8: 128}   # rows a bwd tile
+RING_STAGES = 3          # depth of the adjacency ring, both kernels
+# features a kernel instance is compiled for (the smallest that covers F)
+F_BLOCKS = (1, 8, 16, 32, 64)
+# (column, head) pairs a backward thread accumulates, by compiled F
+BWD_PAIRS = {1: 4, 8: 4, 16: 2, 32: 1, 64: 1}
+# blocks of 256 threads an SM holds (the kernels' __launch_bounds__
+# minimum), by F; a forward block of fewer threads fits that many times
+# more, up to the 8 its shared memory allows
+BLOCKS_PER_SM = {1: 2, 8: 2, 16: 2, 32: 1, 64: 1}
+FWD_MAX_BLOCKS_PER_SM = 8
 
 
 def _attn_dtype(attn_dtype) -> Optional[torch.dtype]:
@@ -167,38 +183,151 @@ def _check(name, alpha_src, alpha_dst, adj, h, extra=()):
     return n, R, H, F
 
 
-def _vec(adj: torch.Tensor, n: int) -> int:
-    """1 when every adjacency row can be read with 16-byte loads."""
-    per16 = 16 // adj.element_size()
-    return int(n % per16 == 0 and adj.data_ptr() % 16 == 0)
+class Plan(NamedTuple):
+    block: int        # target rows (forward) or source columns (backward)
+    tile: tuple       # (rows, columns) of an adjacency tile in the ring
+    split: int        # ranges of the walked axis, one block each
+    per_split: int    # columns (fwd) or rows (bwd) a range; whole tiles
+    vec: int          # copy width of the adjacency in bytes: 16 .. 1
+    stages: int       # depth of the ring (reported only)
+    reduce: str       # bwd: "cluster" or "workspace" sum over the split
+
+
+def _cdiv(x: int, m: int) -> int:
+    return (x + m - 1) // m
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def f_block(f: int) -> int:
+    """The compiled feature width that covers ``f``."""
+    return next(b for b in F_BLOCKS if b >= f)
+
+
+def plan(n: int, r: int, heads: int, f: int, adj_dtype: torch.dtype,
+         adj_ptr: int, sms: int, backward: bool,
+         reduce: str = "workspace") -> Plan:
+    """How a kernel walks the (r, n) adjacency of ``adj_dtype`` at
+    ``adj_ptr`` for ``heads`` heads of ``f`` features, on a card of ``sms``
+    streaming multiprocessors (132 on an H100 SXM, 114 on a PCIe one).
+
+    - Forward: a block owns ``block`` target rows x every head (one thread
+      a (row, head) pair: the largest power of two <= 8 that fits 256
+      threads; 64 threads at 8 heads) and walks the source axis in tiles
+      of 1 KB of each row (256 f32 or 1024 int8 columns).
+    - Backward: a block of 256 threads owns ``block`` source columns x
+      every head, 128 columns (512 bytes of an f32 row) unless the heads
+      and the compiled feature width leave fewer (``BWD_PAIRS`` pairs a
+      thread), and walks the target axis in tiles of 64 (f32) or 128
+      (int8) rows.
+    - Split: when the blocks fill less than one wave (the blocks an SM
+      holds x ``sms``), the walked axis is split into S <= ``MAX_SPLIT``
+      ranges of whole tiles, so the grid fills that wave and no more; the
+      S partials are summed in a fixed order (the forward in one cluster;
+      the backward by ``reduce``).
+    - Copy width: the largest of 16, 8, 4, 2, 1 bytes that divides the
+      pointer and the row length in bytes (and, backward, the block's
+      columns in bytes, where a block starts)."""
+    if adj_dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"flash: adj must be float32 or int8, got "
+                        f"{adj_dtype}")
+    if not (1 <= f <= MAX_F and 1 <= heads <= THREADS and n >= 1 and r >= 1):
+        raise ValueError(f"flash: the kernels take 1 <= F <= {MAX_F}, "
+                         f"1 <= H <= {THREADS} and N, R >= 1; got F={f}, "
+                         f"H={heads}, N={n}, R={r}")
+    if reduce not in ("cluster", "workspace"):
+        raise ValueError(f"flash: reduce must be 'cluster' or 'workspace', "
+                         f"got {reduce!r}")
+    es = adj_dtype.itemsize
+    fb = f_block(f)
+    if backward:
+        wave = BLOCKS_PER_SM[fb] * sms
+        block = _pow2_floor(min(BWD_MAX_COLS,
+                                THREADS * BWD_PAIRS[fb] // heads))
+        tile = (BWD_TILE_ROWS[adj_dtype], block)
+        blocks, walked, step = _cdiv(n, block), r, tile[0]
+    else:
+        block = _pow2_floor(min(FWD_MAX_ROWS, THREADS // heads))
+        tile = (block, FWD_ROW_BYTES // es)
+        blocks, walked, step = _cdiv(r, block), n, tile[1]
+        wave = min(FWD_MAX_BLOCKS_PER_SM,
+                   BLOCKS_PER_SM[fb] * THREADS // fwd_threads(block, heads)
+                   ) * sms
+    # a backward block's rows start block * es bytes after the previous one
+    align = adj_ptr | (n * es) | (block * es if backward else 0)
+    vec = next(v for v in (16, 8, 4, 2, 1) if align % v == 0)
+    if vec < es:
+        raise ValueError("flash: adj must be aligned to its element")
+    tiles = _cdiv(walked, step)
+    split = max(1, min(MAX_SPLIT, tiles, wave // blocks))
+    per_split = _cdiv(tiles, split) * step
+    return Plan(block=block, tile=tile, split=_cdiv(walked, per_split),
+                per_split=per_split, vec=vec, stages=RING_STAGES,
+                reduce=reduce if backward else "cluster")
+
+
+def fwd_threads(rows: int, heads: int) -> int:
+    """Threads of a forward block: its (row, head) pairs in whole warps."""
+    return _cdiv(rows * heads, 32) * 32
+
+
+def bwd_workspace(p: Plan, n: int, r: int, heads: int, f: int) -> int:
+    """Floats of the backward's workspace: one (R, H) partial of d_a_dst a
+    block of source columns, and with a workspace sum over a split target
+    axis, the S partials of d_a_src (N, H) and d_x (N, H, F)."""
+    floats = _cdiv(n, p.block) * r * heads
+    if p.reduce == "workspace" and p.split > 1:
+        floats += p.split * n * heads * (f + 1)
+    return floats
 
 
 class _FlashKernel:
-    """Shared part of the two wrappers: the library entry and a launch
-    counter that only the launch itself increments."""
+    """Shared part of the two wrappers: the library entry, the card's SM
+    count and a launch counter that only the launch itself increments."""
 
     source = "laplace_gnn_torch/csrc/flash_attention.cu"
     symbol = ""
     n_ptr = 0
+    n_int = 0           # ints after slope and bf16: the plan's
+    backward = False
 
     def __init__(self):
         self.launches = 0
+        # the backward's sum over a split: "workspace" (the reduce kernel
+        # that sums d_a_dst; faster in the A/B of scripts/probe_flash.py)
+        # or "cluster"
+        self.reduce = "workspace"
+        self._sms: dict = {}
         self._fn = None
+
+    def bind(self, lib: ctypes.CDLL) -> None:
+        """Launch through ``lib``'s entry point (a build of this file)."""
+        fn = getattr(lib, self.symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * self.n_ptr + [ctypes.c_int] * 5
+                       + [ctypes.c_float] + [ctypes.c_int] * self.n_int
+                       + [ctypes.c_void_p])
+        self._fn = fn
 
     def _entry(self):
         if self._fn is None:
-            fn = getattr(load("flash_attention"), self.symbol)
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * self.n_ptr + [ctypes.c_int] * 5
-                           + [ctypes.c_float] + [ctypes.c_int] * 2
-                           + [ctypes.c_void_p])
-            self._fn = fn
+            self.bind(load("flash_attention"))
         return self._fn
 
-    def _run(self, ptrs, adj, n, R, H, F, slope, cd, device):
+    def plan(self, adj, n, R, H, F) -> Plan:
+        dev = adj.device
+        if dev not in self._sms:
+            self._sms[dev] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        return plan(n, R, H, F, adj.dtype, adj.data_ptr(), self._sms[dev],
+                    self.backward, self.reduce)
+
+    def _run(self, ptrs, adj, n, R, H, F, slope, cd, device, plan_args):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = self._entry()(*ptrs, int(adj.dtype == torch.int8), n, R, H, F,
-                           float(slope), int(cd is not None), _vec(adj, n),
+                           float(slope), int(cd is not None), *plan_args,
                            stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error "
@@ -207,11 +336,16 @@ class _FlashKernel:
 
 
 class FlashForwardKernel(_FlashKernel):
-    """Wrapper of the forward kernel ``flash_fwd_kernel``."""
+    """Wrapper of the forward kernel ``flash_fwd_kernel``: one launch a
+    call. With a split source axis the S partials of each (row, head) are
+    merged in rank order inside one thread-block cluster, so every output
+    is written once (``torch.empty``, no fill) and two calls give the same
+    bits."""
 
     name = "flash_fwd"
     symbol = "flash_fwd_launch"
     n_ptr = 7
+    n_int = 5
 
     def __call__(self, alpha_src, alpha_dst, adj, h, negative_slope=0.2,
                  attn_dtype=None):
@@ -220,25 +354,35 @@ class FlashForwardKernel(_FlashKernel):
             return flash_fwd_reference(alpha_src, alpha_dst, adj, h,
                                        negative_slope, cd)
         n, R, H, F = _check(self.name, alpha_src, alpha_dst, adj, h)
-        out = h.new_zeros((R, H, F))
-        m = h.new_full((H, R), NEG_BIG)
-        l = h.new_zeros((H, R))
-        if R and n:
+        out = torch.empty((R, H, F), dtype=h.dtype, device=h.device)
+        m = torch.empty((H, R), dtype=h.dtype, device=h.device)
+        l = torch.empty((H, R), dtype=h.dtype, device=h.device)
+        if R:
+            p = self.plan(adj, n, R, H, F)
             self._run([t.data_ptr() for t in (alpha_src, alpha_dst, adj, h,
                                               out, m, l)],
-                      adj, n, R, H, F, negative_slope, cd, h.device)
+                      adj, n, R, H, F, negative_slope, cd, h.device,
+                      (p.block, p.split, p.per_split, p.vec))
         return out, m, l
 
 
 class FlashBackwardKernel(_FlashKernel):
     """Wrapper of the backward kernel ``flash_bwd_kernel``. ``D`` and
     ``linv`` are formed here, in PyTorch, as the JAX package forms them
-    outside Pallas; ``d_alpha_dst`` is summed in the kernel with float32
-    atomics, so its summation order changes from run to run."""
+    outside Pallas. Nothing is summed with atomics: ``d_alpha_dst`` is
+    written as one partial a block of source columns into a workspace and
+    summed over the blocks in order by a second small kernel, and the
+    partials of ``d_alpha_src`` and ``d_h`` over a split target axis are
+    summed in rank order (in one cluster, or through the workspace by that
+    kernel: :attr:`reduce`). One counted launch is two device launches;
+    every output and the workspace come from ``torch.empty``, and two calls
+    give the same bits."""
 
     name = "flash_bwd"
     symbol = "flash_bwd_launch"
-    n_ptr = 11
+    n_ptr = 12
+    n_int = 6
+    backward = True
 
     def __call__(self, alpha_src, alpha_dst, adj, h, g, out, m, l,
                  negative_slope=0.2, attn_dtype=None):
@@ -254,14 +398,22 @@ class FlashBackwardKernel(_FlashKernel):
             raise ValueError(f"{self.name}: g and out must be ({R}, {H}, "
                              f"{F}) and m, l ({H}, {R})")
         D, linv = _bwd_stats(g, out, l)
-        g_asrc = torch.zeros_like(alpha_src)
-        g_adst = torch.zeros_like(alpha_dst)     # the kernel adds into it
-        g_h = torch.zeros_like(h)
-        if R and n:
+        g_asrc = torch.empty_like(alpha_src)
+        g_adst = torch.empty_like(alpha_dst)
+        g_h = torch.empty_like(h)
+        if R:
+            p = self.plan(adj, n, R, H, F)
+            ws = torch.empty(bwd_workspace(p, n, R, H, F), dtype=h.dtype,
+                             device=h.device)
             self._run([t.data_ptr() for t in (alpha_src, alpha_dst, adj, h,
                                               g, m, linv, D, g_asrc, g_adst,
-                                              g_h)],
-                      adj, n, R, H, F, negative_slope, cd, h.device)
+                                              g_h, ws)],
+                      adj, n, R, H, F, negative_slope, cd, h.device,
+                      (p.block, p.split, p.per_split, p.vec,
+                       int(p.reduce == "cluster")))
+        else:
+            g_asrc.zero_()
+            g_h.zero_()
         return g_asrc, g_adst, g_h
 
 
@@ -272,6 +424,12 @@ flash_bwd = FlashBackwardKernel()
 class FlashMaskedAttention(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient. It
     returns ``(out, m, l)``; the statistics are not differentiable.
+
+    Both kernels are bound by reading the adjacency once (1.07 GB of
+    float32 at N = 16384); both sum in a fixed order (a split's partials
+    merged in rank order, per-block partials of d_alpha_dst reduced in
+    order, no atomics), so the forward and the gradients repeat to the
+    bit on one card.
 
     The backward kernel has no derivative of its own (nor has the Pallas
     backward in JAX), so a backward with ``create_graph=True`` raises

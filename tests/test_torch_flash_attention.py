@@ -187,26 +187,190 @@ def test_attn_dtype_is_checked():
         T.flash_fwd(a_src, a_dst, adj, h, 0.2, "float16")
 
 
+# the kernels' launch plan (pure: shapes, dtype, pointer, SM count)
+F32, I8 = torch.float32, torch.int8
+
+
+def _axes(p, n, r, backward):
+    """(blocks, walked axis, tile along it) of a plan."""
+    if backward:
+        return -(-n // p.block), r, p.tile[0]
+    return -(-r // p.block), n, p.tile[1]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [F32, I8])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n", [2708, 16384])
+def test_plan_split_fills_one_wave_of_the_card(n, sms, dtype, backward):
+    for f in (8, 1):
+        p = T.plan(n, n, 8, f, dtype, 0, sms, backward)
+        blocks, walked, step = _axes(p, n, n, backward)
+        per_sm = T.BLOCKS_PER_SM[T.f_block(f)]
+        if not backward:          # small blocks: more of them an SM
+            per_sm = min(T.FWD_MAX_BLOCKS_PER_SM,
+                         per_sm * T.THREADS // T.fwd_threads(p.block, 8))
+        wave = per_sm * sms
+        tiles = -(-walked // step)
+        assert 1 <= p.split <= T.MAX_SPLIT
+        if p.split > 1:               # one wave and no more
+            assert blocks * p.split <= wave
+        # no larger split of whole tiles fits the wave
+        more = [s for s in range(p.split + 1, T.MAX_SPLIT + 1)
+                if blocks * s <= wave and s <= tiles
+                and -(-walked // (-(-tiles // s) * step)) > p.split]
+        assert not more, (p, more)
+
+
+def test_plan_at_the_timed_shapes():
+    got = {(n, sms, bwd): T.plan(n, n, 8, 8, F32, 0, sms, bwd).split
+           for n in (2708, 16384) for sms in (132, 114)
+           for bwd in (False, True)}
+    assert got == {(2708, 132, False): 3, (2708, 114, False): 2,
+                   (16384, 132, False): 1, (16384, 114, False): 1,
+                   (2708, 132, True): 8, (2708, 114, True): 8,
+                   (16384, 132, True): 2, (16384, 114, True): 1}
+    fwd = T.plan(2708, 2708, 8, 8, F32, 0, 132, False)
+    bwd = T.plan(2708, 2708, 8, 8, F32, 0, 132, True)
+    # 8 rows x 8 heads: 64 threads, 8 blocks an SM
+    assert (fwd.block, fwd.tile, fwd.per_split) == (8, (8, 256), 1024)
+    assert T.fwd_threads(fwd.block, 8) == 64
+    # backward rows of 512 bytes: 128 f32 columns a block
+    assert (bwd.block, bwd.tile, bwd.per_split) == (128, (64, 128), 384)
+    assert T.plan(2708, 2708, 8, 8, I8, 0, 132, False).tile == (8, 1024)
+    assert fwd.stages == bwd.stages == T.RING_STAGES
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_plan_split_stays_at_most_eight(backward):
+    for n in (40, 300, 2708, 16384):
+        for sms in (1, 132, 10 ** 6):
+            p = T.plan(n, n, 8, 8, F32, 0, sms, backward)
+            assert 1 <= p.split <= T.MAX_SPLIT
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [F32, I8])
+def test_plan_ranges_are_whole_tiles_and_none_empty(dtype, backward):
+    for n in (1, 40, 255, 256, 1025, 2707, 2708, 5461, 16384):
+        for r in {n, max(1, n // 3)}:
+            p = T.plan(n, r, 8, 8, dtype, 0, 132, backward)
+            _, walked, step = _axes(p, n, r, backward)
+            assert p.per_split % step == 0
+            assert (p.split - 1) * p.per_split < walked
+            assert p.split * p.per_split >= walked
+
+
+@pytest.mark.parametrize("name,n,dtype,offset,backward,heads,f,vec", [
+    ("f32 rows of 16 bytes", 2708, F32, 0, False, 8, 8, 16),
+    ("f32 N = 2707", 2707, F32, 0, False, 8, 8, 4),
+    ("f32 view one element in", 2708, F32, 4, False, 8, 8, 4),
+    ("f32 view two elements in", 2708, F32, 8, True, 8, 8, 8),
+    ("int8 rows of 16 bytes", 16384, I8, 0, False, 8, 8, 16),
+    ("int8 N = 2708", 2708, I8, 0, True, 8, 8, 4),
+    ("int8 N = 2706", 2706, I8, 0, False, 8, 8, 2),
+    ("int8 N = 2707", 2707, I8, 0, False, 8, 8, 1),
+    ("int8 view one row in", 2708, I8, 2708, False, 8, 8, 4),
+    # a backward block of one f32 column starts 4 bytes after the last
+    ("f32 one column a block", 2708, F32, 0, True, 256, 64, 4),
+    ("int8 four columns a block", 2708, I8, 0, True, 256, 8, 4),
+])
+def test_plan_copy_width_follows_pointer_and_row_bytes(
+        name, n, dtype, offset, backward, heads, f, vec):
+    p = T.plan(n, n, heads, f, dtype, (1 << 20) + offset, 132, backward)
+    assert p.vec == vec, name
+
+
+@pytest.mark.parametrize("heads,f", [(1, 1), (1, 64), (3, 5), (16, 8),
+                                     (256, 1), (256, 64)])
+def test_plan_at_the_edges_of_the_domain(heads, f):
+    fb = T.f_block(f)
+    for backward in (False, True):
+        p = T.plan(300, 300, heads, f, F32, 0, 132, backward)
+        if backward:              # the threads' pairs hold every column
+            assert p.block * heads <= T.THREADS * T.BWD_PAIRS[fb]
+            assert 1 <= p.block <= T.BWD_MAX_COLS
+        else:                     # one thread a (row, head) pair
+            assert p.block * heads <= T.THREADS
+            assert 1 <= p.block <= T.FWD_MAX_ROWS
+        assert p.block & (p.block - 1) == 0
+
+
+@pytest.mark.parametrize("kw", [dict(heads=257), dict(f=65), dict(f=0),
+                                dict(heads=0), dict(n=0)])
+def test_plan_rejects_what_the_kernels_do_not_take(kw):
+    args = dict(n=300, r=300, heads=8, f=8, adj_dtype=F32, adj_ptr=0,
+                sms=132, backward=True)
+    args.update(kw)
+    with pytest.raises(ValueError):
+        T.plan(**args)
+    with pytest.raises(TypeError):
+        T.plan(300, 300, 8, 8, torch.float64, 0, 132, False)
+    with pytest.raises(ValueError):            # f32 not 4-byte aligned
+        T.plan(300, 300, 8, 8, F32, 2, 132, False)
+    with pytest.raises(ValueError):
+        T.plan(300, 300, 8, 8, F32, 0, 132, True, reduce="atomics")
+
+
+def test_bwd_workspace_holds_the_partials():
+    n, r, H, F = 16384, 16384, 8, 8
+    p = T.plan(n, r, H, F, F32, 0, 132, True, reduce="cluster")
+    # one (R, H) partial of d_a_dst a block of 128 source columns
+    assert T.bwd_workspace(p, n, r, H, F) == 128 * r * H
+    # and the 2 partials of d_a_src and d_x over the split target axis
+    ws = T.plan(n, r, H, F, F32, 0, 132, True)
+    assert ws.reduce == "workspace" and ws.split == 2
+    assert T.bwd_workspace(ws, n, r, H, F) == (128 * r * H
+                                                + 2 * n * H * (F + 1))
+
+
 @pytest.mark.cuda
 def test_flash_kernels_on_card_match_plain_versions():
     """Both CUDA kernels against their plain versions on the card: float32
-    to 1e-4 relative to the largest entry (sums in another order; d_a_dst
-    summed with atomics), bf16 operands to 2^-7."""
+    to 1e-4 relative to the largest entry (sums in another order: the online
+    softmax, split partials merged in a fixed order), bf16 operands to
+    2^-7; m exactly; two calls of each kernel give the same bits. Beside
+    FWD_CASES: a banded graph (most splits of a row empty), N = 2707 (no
+    16-byte rows), an offset view, H = 16 and 256, F = 64 and scores whose
+    exp underflows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    for kw, R, int8, attn_dtype in FWD_CASES.values():
+    cases = [(kw, R, int8, attn_dtype, None)
+             for kw, R, int8, attn_dtype in FWD_CASES.values()]
+    cases += [(dict(n=2708, H=8, F=8, seed=20, iso=False, banded=True), None,
+               False, None, None),
+              (dict(n=2707, H=8, F=8, seed=21), None, False, None, None),
+              (dict(n=2707, H=8, F=1, seed=22), None, True, None, None),
+              (dict(n=300, H=8, F=8, seed=23), None, False, None, "offset"),
+              (dict(n=300, H=16, F=8, seed=24), None, True, None, None),
+              (dict(n=80, H=256, F=2, seed=25), None, False, None, None),
+              (dict(n=300, H=8, F=64, seed=26), None, False, None, None),
+              (dict(n=300, H=8, F=8, seed=27), None, False, None,
+               "underflow")]
+    for kw, R, int8, attn_dtype, variant in cases:
         a_src, a_dst, adj, h = _graph(**kw)
+        if variant == "underflow":
+            a_src[3], a_src[4] = -80.0, -800.0
         R = R or adj.shape[0]
         mask = (adj[:R] > 0).astype(np.int8) if int8 else adj[:R]
         args = [torch.as_tensor(x, device="cuda")
                 for x in (a_src, a_dst[:R], mask, h)]
+        if variant == "offset":           # one element into its buffer
+            buf = torch.empty(args[2].numel() + 1, device="cuda")
+            buf[1:].copy_(args[2].reshape(-1))
+            args[2] = buf[1:].view(args[2].shape)
         got = T.flash_fwd(*args, 0.2, attn_dtype)
         want = T.flash_fwd_reference(*args, 0.2, attn_dtype)
         g = torch.randn_like(got[0])
         got_b = T.flash_bwd(*args, g, *want, 0.2, attn_dtype)
         want_b = T.flash_bwd_reference(*args, g, *want, 0.2, attn_dtype)
+        again = (T.flash_fwd(*args, 0.2, attn_dtype)
+                 + T.flash_bwd(*args, g, *want, 0.2, attn_dtype))
         torch.cuda.synchronize()
         tol = 2.0 ** -7 if attn_dtype else 1e-4
         for x, y in list(zip(got, want)) + list(zip(got_b, want_b)):
             scale = float(y.abs().max()) + 1e-6
             assert float((x - y).abs().max()) <= tol * scale, (kw, R)
+        assert torch.equal(got[1], want[1]), kw          # m is exact
+        for x, y in zip(got + got_b, again):
+            assert torch.equal(x, y), kw

@@ -136,3 +136,11 @@ def test_flash_wrappers_reject_mixed_devices(wrapper):
     with pytest.raises(ValueError, match="one CUDA device"):
         getattr(fa, wrapper)(*args)
     assert getattr(fa, wrapper).launches == before
+
+
+def test_flash_kernels_sum_without_atomics():
+    """Both flash kernels sum in a fixed order (a cluster merge and an
+    ordered reduce of per-block partials), so two calls give the same
+    bits: the source holds no atomic add."""
+    src = (REPO / "laplace_gnn_torch" / "csrc" / "flash_attention.cu")
+    assert "atomicAdd" not in src.read_text()
