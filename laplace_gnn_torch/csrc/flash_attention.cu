@@ -58,11 +58,12 @@
 //    for a tile without an edge); a column fold sums d_a_src and d_x of a
 //    thread's few (column, head) pairs in registers over the block's target
 //    range. When the column blocks fill less than a wave, the target axis
-//    is split into S <= 8 ranges; their partials of d_a_src and d_x are
-//    summed in rank order, in one cluster (as the forward) or, by the
-//    plan's choice, through a workspace. A second small kernel sums the
-//    d_a_dst partials (and the workspace ones) over the column blocks in
-//    order. No atomics: two calls give the same bits.
+//    is split into S <= 8 ranges, whose partials of d_a_src and d_x go to
+//    a workspace. A second small kernel sums the d_a_dst partials over the
+//    column blocks and those over the S ranges, each in order (measured
+//    faster than a sum in one cluster through distributed shared memory:
+//    the d_a_dst partials need the second launch anyway). No atomics: two
+//    calls give the same bits.
 // With bf16 != 0 the operands of the p.x, g.x and p.g products are rounded
 // to bf16 before float32 FMAs; else all is float32, with no TF32.
 //
@@ -510,8 +511,7 @@ flash_fwd_kernel(const float* __restrict__ a_src,
 // ld bytes: the block's columns rounded up to 16 bytes, + 16 so that
 // 16-byte reads of 32 rows hit distinct banks) and the items of one full
 // row (cols x heads, d_z then p g[FB] each); the row bits, the column bits
-// and the row index. With a cluster sum, the start is reused for each
-// thread's (d_a_src, d_x[FB]) partials.
+// and the row index.
 template <typename T, int FB>
 struct BwdLayout {
   static constexpr int TR = Adj<T>::BWD_ROWS;
@@ -534,11 +534,8 @@ struct BwdLayout {
   __host__ __device__ static int start_at(int cols, int heads) {
     return colb_at(cols, heads) + cols * GROUPS * 4;
   }
-  static int bytes(int cols, int heads, int split, int cluster_sum) {
-    const int main = start_at(cols, heads) + (TR + 4) / 4 * 16;
-    const int partial = split > 1 && cluster_sum
-        ? THREADS * Feat<FB>::PAIRS * (FB + 1) * 4 : 0;
-    return main > partial ? main : partial;
+  static int bytes(int cols, int heads) {
+    return start_at(cols, heads) + (TR + 4) / 4 * 16;
   }
 };
 
@@ -561,7 +558,7 @@ flash_bwd_kernel(const float* __restrict__ a_src,
                  float* __restrict__ d_x, float* __restrict__ ws_adst,
                  float* __restrict__ ws_src, int n, int r, int heads, int f,
                  int cols, int split, int per_split, float slope, int bf16,
-                 int vec, int cluster_sum) {
+                 int vec) {
   using L = BwdLayout<T, FB>;
   constexpr int TR = L::TR, GROUPS = L::GROUPS;
   constexpr int PAIRS = Feat<FB>::PAIRS;
@@ -707,65 +704,28 @@ flash_bwd_kernel(const float* __restrict__ a_src,
   }
   cp_async_wait<0>();
 
-  // d_a_src and d_x: written once (no split), or their S partials summed
-  // in rank order, in the cluster or by the reduce kernel
-  if (split == 1 || !cluster_sum) {
-    const size_t nh = (size_t)n * heads;
-    float* o_src = split == 1 ? d_asrc : ws_src + (size_t)part * nh * (f + 1);
-    float* o_x = split == 1 ? d_x : o_src + nh;
-#pragma unroll
-    for (int k = 0; k < PAIRS; ++k) {
-      const int q = k * THREADS + tid;
-      const int cc = q / heads, hd = q - cc * heads;
-      const int j = col0 + cc;
-      if (cc >= cols || j >= n) continue;
-      const size_t jh = (size_t)j * heads + hd;
-      o_src[jh] = das[k];
-#pragma unroll
-      for (int e = 0; e < FB; ++e)
-        if (e < f) o_x[jh * f + e] = dx[k][e];
-    }
-    return;
-  }
-  __syncthreads();                            // the ring is spent
-  float* pd = reinterpret_cast<float*>(smem);
+  // d_a_src and d_x: written once (no split), or this range's partials,
+  // which the reduce kernel sums in order
+  const size_t nh = (size_t)n * heads;
+  float* o_src = split == 1 ? d_asrc : ws_src + (size_t)part * nh * (f + 1);
+  float* o_x = split == 1 ? d_x : o_src + nh;
 #pragma unroll
   for (int k = 0; k < PAIRS; ++k) {
     const int q = k * THREADS + tid;
-    pd[q * (FB + 1)] = das[k];
-#pragma unroll
-    for (int e = 0; e < FB; ++e) pd[q * (FB + 1) + 1 + e] = dx[k][e];
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int pairs = cols * heads;
-  const int share = (pairs + split - 1) / split;
-  for (int q = part * share + tid; q < min(pairs, (part + 1) * share);
-       q += THREADS) {
     const int cc = q / heads, hd = q - cc * heads;
     const int j = col0 + cc;
-    if (j >= n) continue;
-    float v[FB + 1];
-#pragma unroll
-    for (int e = 0; e <= FB; ++e) v[e] = 0.f;
-    for (int s = 0; s < split; ++s) {
-      const float* src = cluster.map_shared_rank(pd, s) + q * (FB + 1);
-#pragma unroll
-      for (int e = 0; e <= FB; ++e)
-        if (e <= f) v[e] += src[e];
-    }
+    if (cc >= cols || j >= n) continue;
     const size_t jh = (size_t)j * heads + hd;
-    d_asrc[jh] = v[0];
+    o_src[jh] = das[k];
 #pragma unroll
     for (int e = 0; e < FB; ++e)
-      if (e < f) d_x[jh * f + e] = v[1 + e];
+      if (e < f) o_x[jh * f + e] = dx[k][e];
   }
-  cluster.sync();                             // partials stay until read
 }
 
 // d_a_dst[i, h] = sum over the column blocks c, in order, of ws_adst[c, i, h];
-// with a workspace sum over S target ranges, also d_a_src and d_x as the
-// sums over s, in order, of their partials in ws_src
+// with S > 1 target ranges, also d_a_src and d_x as the sums over s, in
+// order, of their partials in ws_src
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_reduce(const float* __restrict__ ws_adst, int col_blocks,
                  const float* __restrict__ ws_src, int split,
@@ -799,13 +759,14 @@ struct Args {
   float *out, *m_out, *l_out, *d_asrc, *d_adst, *d_x, *ws;
   int n, r, heads, f;
   float slope;
-  int bf16, block, split, per_split, vec, cluster_sum;
+  int bf16, block, split, per_split, vec;
   cudaStream_t stream;
 };
 
+// a launch of `blocks` blocks of `threads`, in clusters of `cluster`
 template <typename K, typename... A>
-cudaError_t launch_split(K kernel, int blocks, int threads, int split,
-                         int smem, cudaStream_t stream, A... args) {
+cudaError_t launch(K kernel, int blocks, int threads, int cluster, int smem,
+                   cudaStream_t stream, A... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -816,11 +777,11 @@ cudaError_t launch_split(K kernel, int blocks, int threads, int split,
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -834,7 +795,7 @@ cudaError_t launch_fwd(const Args& a) {
       static_cast<long long>((a.r + a.block - 1) / a.block) * a.split;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const int nt = (a.block * a.heads + 31) / 32 * 32;
-  return launch_split(flash_fwd_kernel<T, FB>, static_cast<int>(blocks), nt,
+  return launch(flash_fwd_kernel<T, FB>, static_cast<int>(blocks), nt,
                       a.split, L::bytes(a.block, a.heads, a.split, nt),
                       a.stream, a.a_src,
                       a.a_dst, static_cast<const T*>(a.adj), a.x, a.out,
@@ -855,20 +816,18 @@ cudaError_t launch_bwd(const Args& a) {
   const long long rh = static_cast<long long>(a.r) * a.heads;
   const long long nh = static_cast<long long>(a.n) * a.heads;
   float* ws_src = a.ws + col_blocks * rh;
-  cudaError_t e = launch_split(
-      flash_bwd_kernel<T, FB>, static_cast<int>(blocks), THREADS, a.split,
-      L::bytes(a.block, a.heads, a.split, a.cluster_sum), a.stream, a.a_src,
-      a.a_dst,
+  cudaError_t e = launch(
+      flash_bwd_kernel<T, FB>, static_cast<int>(blocks), THREADS, 1,
+      L::bytes(a.block, a.heads), a.stream, a.a_src, a.a_dst,
       static_cast<const T*>(a.adj), a.x, a.g, a.m, a.linv, a.dvec, a.d_asrc,
       a.d_x, a.ws, ws_src, a.n, a.r, a.heads, a.f, a.block, a.split,
-      a.per_split, a.slope, a.bf16, a.vec, a.cluster_sum);
+      a.per_split, a.slope, a.bf16, a.vec);
   if (e != cudaSuccess) return e;
-  const int split_ws = a.cluster_sum ? 1 : a.split;
-  const long long total = rh + (split_ws > 1 ? nh * (a.f + 1) : 0);
+  const long long total = rh + (a.split > 1 ? nh * (a.f + 1) : 0);
   const long long want = (total + THREADS - 1) / THREADS;
   const long long grid = want < 132LL * 16 ? want : 132LL * 16;
   flash_bwd_reduce<<<static_cast<unsigned>(grid), THREADS, 0, a.stream>>>(
-      a.ws, col_blocks, ws_src, split_ws, a.d_adst, a.d_asrc, a.d_x, rh, nh,
+      a.ws, col_blocks, ws_src, a.split, a.d_adst, a.d_asrc, a.d_x, rh, nh,
       nh * a.f);
   return cudaGetLastError();
 }
@@ -939,23 +898,20 @@ int flash_fwd_launch(const float* a_src, const float* a_dst, const void* adj,
 // each written once. cols: source columns a block (<= 128, cols * heads
 // within the threads' pairs); the target axis is split into `split` <= 8
 // ranges of per_split rows (whole tiles of 64 f32 or 128 int8 rows), none
-// empty; cluster = 1 sums the split's partials in one cluster, 0 through
-// the workspace. ws: ceil(n / cols) * r * heads floats, + split * n * heads
-// * (f + 1) with a workspace sum. Two launches: the kernel and the reduce.
+// empty. ws: ceil(n / cols) * r * heads floats, + split * n * heads *
+// (f + 1) when split > 1. Two launches: the kernel and the reduce.
 int flash_bwd_launch(const float* a_src, const float* a_dst, const void* adj,
                      const float* x, const float* g, const float* m,
                      const float* linv, const float* dvec, float* d_asrc,
                      float* d_adst, float* d_x, float* ws, int adj_int8, int n,
                      int r, int heads, int f, float slope, int bf16, int cols,
-                     int split, int per_split, int vec, int cluster,
-                     void* stream) {
+                     int split, int per_split, int vec, void* stream) {
   Args a{};
   a.a_src = a_src; a.a_dst = a_dst; a.adj = adj; a.x = x; a.g = g;
   a.m = m; a.linv = linv; a.dvec = dvec;
   a.d_asrc = d_asrc; a.d_adst = d_adst; a.d_x = d_x; a.ws = ws;
   a.n = n; a.r = r; a.heads = heads; a.f = f; a.slope = slope; a.bf16 = bf16;
   a.block = cols; a.split = split; a.per_split = per_split; a.vec = vec;
-  a.cluster_sum = cluster;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<true>(a, adj_int8);
 }

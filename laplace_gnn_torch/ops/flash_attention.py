@@ -190,7 +190,6 @@ class Plan(NamedTuple):
     per_split: int    # columns (fwd) or rows (bwd) a range; whole tiles
     vec: int          # copy width of the adjacency in bytes: 16 .. 1
     stages: int       # depth of the ring (reported only)
-    reduce: str       # bwd: "cluster" or "workspace" sum over the split
 
 
 def _cdiv(x: int, m: int) -> int:
@@ -207,8 +206,7 @@ def f_block(f: int) -> int:
 
 
 def plan(n: int, r: int, heads: int, f: int, adj_dtype: torch.dtype,
-         adj_ptr: int, sms: int, backward: bool,
-         reduce: str = "workspace") -> Plan:
+         adj_ptr: int, sms: int, backward: bool) -> Plan:
     """How a kernel walks the (r, n) adjacency of ``adj_dtype`` at
     ``adj_ptr`` for ``heads`` heads of ``f`` features, on a card of ``sms``
     streaming multiprocessors (132 on an H100 SXM, 114 on a PCIe one).
@@ -225,8 +223,8 @@ def plan(n: int, r: int, heads: int, f: int, adj_dtype: torch.dtype,
     - Split: when the blocks fill less than one wave (the blocks an SM
       holds x ``sms``), the walked axis is split into S <= ``MAX_SPLIT``
       ranges of whole tiles, so the grid fills that wave and no more; the
-      S partials are summed in a fixed order (the forward in one cluster;
-      the backward by ``reduce``).
+      S partials are summed in a fixed order (the forward's in one
+      cluster, the backward's by its reduce kernel).
     - Copy width: the largest of 16, 8, 4, 2, 1 bytes that divides the
       pointer and the row length in bytes (and, backward, the block's
       columns in bytes, where a block starts)."""
@@ -237,9 +235,6 @@ def plan(n: int, r: int, heads: int, f: int, adj_dtype: torch.dtype,
         raise ValueError(f"flash: the kernels take 1 <= F <= {MAX_F}, "
                          f"1 <= H <= {THREADS} and N, R >= 1; got F={f}, "
                          f"H={heads}, N={n}, R={r}")
-    if reduce not in ("cluster", "workspace"):
-        raise ValueError(f"flash: reduce must be 'cluster' or 'workspace', "
-                         f"got {reduce!r}")
     es = adj_dtype.itemsize
     fb = f_block(f)
     if backward:
@@ -264,8 +259,7 @@ def plan(n: int, r: int, heads: int, f: int, adj_dtype: torch.dtype,
     split = max(1, min(MAX_SPLIT, tiles, wave // blocks))
     per_split = _cdiv(tiles, split) * step
     return Plan(block=block, tile=tile, split=_cdiv(walked, per_split),
-                per_split=per_split, vec=vec, stages=RING_STAGES,
-                reduce=reduce if backward else "cluster")
+                per_split=per_split, vec=vec, stages=RING_STAGES)
 
 
 def fwd_threads(rows: int, heads: int) -> int:
@@ -275,10 +269,10 @@ def fwd_threads(rows: int, heads: int) -> int:
 
 def bwd_workspace(p: Plan, n: int, r: int, heads: int, f: int) -> int:
     """Floats of the backward's workspace: one (R, H) partial of d_a_dst a
-    block of source columns, and with a workspace sum over a split target
-    axis, the S partials of d_a_src (N, H) and d_x (N, H, F)."""
+    block of source columns, and with a split target axis, the S partials
+    of d_a_src (N, H) and d_x (N, H, F)."""
     floats = _cdiv(n, p.block) * r * heads
-    if p.reduce == "workspace" and p.split > 1:
+    if p.split > 1:
         floats += p.split * n * heads * (f + 1)
     return floats
 
@@ -290,15 +284,10 @@ class _FlashKernel:
     source = "laplace_gnn_torch/csrc/flash_attention.cu"
     symbol = ""
     n_ptr = 0
-    n_int = 0           # ints after slope and bf16: the plan's
     backward = False
 
     def __init__(self):
         self.launches = 0
-        # the backward's sum over a split: "workspace" (the reduce kernel
-        # that sums d_a_dst; faster in the A/B of scripts/probe_flash.py)
-        # or "cluster"
-        self.reduce = "workspace"
         self._sms: dict = {}
         self._fn = None
 
@@ -307,7 +296,7 @@ class _FlashKernel:
         fn = getattr(lib, self.symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * self.n_ptr + [ctypes.c_int] * 5
-                       + [ctypes.c_float] + [ctypes.c_int] * self.n_int
+                       + [ctypes.c_float] + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         self._fn = fn
 
@@ -322,13 +311,13 @@ class _FlashKernel:
             self._sms[dev] = torch.cuda.get_device_properties(
                 dev).multi_processor_count
         return plan(n, R, H, F, adj.dtype, adj.data_ptr(), self._sms[dev],
-                    self.backward, self.reduce)
+                    self.backward)
 
-    def _run(self, ptrs, adj, n, R, H, F, slope, cd, device, plan_args):
+    def _run(self, ptrs, adj, n, R, H, F, slope, cd, device, p: Plan):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = self._entry()(*ptrs, int(adj.dtype == torch.int8), n, R, H, F,
-                           float(slope), int(cd is not None), *plan_args,
-                           stream)
+                           float(slope), int(cd is not None), p.block,
+                           p.split, p.per_split, p.vec, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error "
                                f"{rc}")
@@ -345,7 +334,6 @@ class FlashForwardKernel(_FlashKernel):
     name = "flash_fwd"
     symbol = "flash_fwd_launch"
     n_ptr = 7
-    n_int = 5
 
     def __call__(self, alpha_src, alpha_dst, adj, h, negative_slope=0.2,
                  attn_dtype=None):
@@ -361,27 +349,24 @@ class FlashForwardKernel(_FlashKernel):
             p = self.plan(adj, n, R, H, F)
             self._run([t.data_ptr() for t in (alpha_src, alpha_dst, adj, h,
                                               out, m, l)],
-                      adj, n, R, H, F, negative_slope, cd, h.device,
-                      (p.block, p.split, p.per_split, p.vec))
+                      adj, n, R, H, F, negative_slope, cd, h.device, p)
         return out, m, l
 
 
 class FlashBackwardKernel(_FlashKernel):
     """Wrapper of the backward kernel ``flash_bwd_kernel``. ``D`` and
     ``linv`` are formed here, in PyTorch, as the JAX package forms them
-    outside Pallas. Nothing is summed with atomics: ``d_alpha_dst`` is
-    written as one partial a block of source columns into a workspace and
-    summed over the blocks in order by a second small kernel, and the
-    partials of ``d_alpha_src`` and ``d_h`` over a split target axis are
-    summed in rank order (in one cluster, or through the workspace by that
-    kernel: :attr:`reduce`). One counted launch is two device launches;
-    every output and the workspace come from ``torch.empty``, and two calls
-    give the same bits."""
+    outside Pallas. It is bound by reading the adjacency once, like the
+    forward. Nothing is summed with atomics: ``d_alpha_dst`` is written as
+    one partial a block of source columns into a workspace, and with a
+    split target axis so are the partials of ``d_alpha_src`` and ``d_h``;
+    a second small kernel sums each over its blocks in order. One counted
+    launch is two device launches; every output and the workspace come
+    from ``torch.empty``, and two calls give the same bits."""
 
     name = "flash_bwd"
     symbol = "flash_bwd_launch"
     n_ptr = 12
-    n_int = 6
     backward = True
 
     def __call__(self, alpha_src, alpha_dst, adj, h, g, out, m, l,
@@ -408,9 +393,7 @@ class FlashBackwardKernel(_FlashKernel):
             self._run([t.data_ptr() for t in (alpha_src, alpha_dst, adj, h,
                                               g, m, linv, D, g_asrc, g_adst,
                                               g_h, ws)],
-                      adj, n, R, H, F, negative_slope, cd, h.device,
-                      (p.block, p.split, p.per_split, p.vec,
-                       int(p.reduce == "cluster")))
+                      adj, n, R, H, F, negative_slope, cd, h.device, p)
         else:
             g_asrc.zero_()
             g_h.zero_()

@@ -10,11 +10,6 @@ named). Variants that need other code are built from a text-edited copy of
 (all at once, one nvcc each); the edited copies are removed after the
 build. Probes (default: all):
 
-  reduce    the backward's sum over a split target axis in one cluster
-            (``reduce = "cluster"``) against an f32 workspace summed with
-            the d_a_dst partials by its second kernel (``"workspace"``), in
-            the order cluster, workspace, workspace, cluster; the two must
-            give the same bits;
   ablation  the kernels with parts taken out (timing only; the results are
             wrong): the forward with its bits but no edge work, and its
             adjacency stream alone; the backward without its row fold,
@@ -125,30 +120,6 @@ def operands(n, f, dtype=torch.float32):
     return a_src, a_dst, mask, h, gout
 
 
-def probe_reduce():
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for n, f, dtype in ((2708, 8, torch.float32), (2708, 1, torch.float32),
-                        (16384, 8, torch.float32), (16384, 8, torch.int8)):
-        a_src, a_dst, mask, h, gout = operands(n, f, dtype)
-        saved = fa.flash_fwd(a_src, a_dst, mask, h)
-        run = lambda: fa.flash_bwd(a_src, a_dst, mask, h, gout, *saved)
-        row = {"probe": "reduce", "n": n, "f": f,
-               "adj": str(dtype).split(".")[-1],
-               "split": fa.plan(n, n, cs.GAT_HEADS, f, dtype,
-                                mask.data_ptr(), sms, True).split}
-        outs = {}
-        for reduce in ("cluster", "workspace", "workspace", "cluster"):
-            fa.flash_bwd.reduce = reduce
-            outs[reduce] = run()
-            row.setdefault(reduce, []).append(cs.cold_ms(torch, run))
-        fa.flash_bwd.reduce = "workspace"
-        row["same_bits"] = all(torch.equal(x, y) for x, y in
-                               zip(outs["cluster"], outs["workspace"]))
-        print(json.dumps(row), flush=True)
-        del a_src, a_dst, mask, h, gout, saved, outs
-        torch.cuda.empty_cache()
-
-
 def probe_ablation():
     """Each variant, then the kernel itself, at N = 16384 and 2708 (F = 8);
     one line a (variant, shape), printed as it is measured."""
@@ -171,7 +142,7 @@ def probe_ablation():
         torch.cuda.empty_cache()
 
 
-PROBES = {"reduce": probe_reduce, "ablation": probe_ablation}
+PROBES = {"ablation": probe_ablation}
 
 
 def main(argv=None) -> int:

@@ -308,20 +308,18 @@ def test_plan_rejects_what_the_kernels_do_not_take(kw):
         T.plan(300, 300, 8, 8, torch.float64, 0, 132, False)
     with pytest.raises(ValueError):            # f32 not 4-byte aligned
         T.plan(300, 300, 8, 8, F32, 2, 132, False)
-    with pytest.raises(ValueError):
-        T.plan(300, 300, 8, 8, F32, 0, 132, True, reduce="atomics")
 
 
 def test_bwd_workspace_holds_the_partials():
     n, r, H, F = 16384, 16384, 8, 8
-    p = T.plan(n, r, H, F, F32, 0, 132, True, reduce="cluster")
-    # one (R, H) partial of d_a_dst a block of 128 source columns
-    assert T.bwd_workspace(p, n, r, H, F) == 128 * r * H
-    # and the 2 partials of d_a_src and d_x over the split target axis
-    ws = T.plan(n, r, H, F, F32, 0, 132, True)
-    assert ws.reduce == "workspace" and ws.split == 2
-    assert T.bwd_workspace(ws, n, r, H, F) == (128 * r * H
-                                                + 2 * n * H * (F + 1))
+    # one (R, H) partial of d_a_dst a block of 128 source columns, and the
+    # 2 partials of d_a_src and d_x over the split target axis
+    p = T.plan(n, r, H, F, F32, 0, 132, True)
+    assert p.split == 2
+    assert T.bwd_workspace(p, n, r, H, F) == (128 * r * H
+                                               + 2 * n * H * (F + 1))
+    one = p._replace(split=1)
+    assert T.bwd_workspace(one, n, r, H, F) == 128 * r * H
 
 
 @pytest.mark.cuda
