@@ -29,18 +29,20 @@
 //    the backward also builds 32-row words of a column from 16-byte (f32)
 //    or 4-byte (int8, __vcmpgts4) reads of 32 rows and a ballot a column.
 //    __syncthreads_or skips the rest of a tile with no edge.
-//  - The edges of a tile. One warp turns the row bits into a row-major
-//    index (a prefix sum of the rows' edge counts). Each (edge, head) item
-//    is then computed by one thread, with the loads of every item in
-//    flight at once, into the tile's slot, which its bits have replaced:
-//    the forward's score and x row, the backward's dz and p g. The folds
-//    that follow read shared memory only, in a fixed order. The items go in
-//    chunks when a tile holds more than a slot (dense graphs).
+//  - The edges of a tile. The forward's (row, head) threads take their
+//    row's edges BATCH at a time, the loads of a batch (a_src and the x
+//    row) in flight together. In the backward, one warp turns the row bits
+//    into a row-major index (a prefix sum of the rows' edge counts); each
+//    (edge, head) item, its dz and p g, is computed by one thread with the
+//    loads of every item in flight at once, into the tile's slot, which
+//    its bits have replaced; the folds then read shared memory in a fixed
+//    order. The items go in chunks of whole rows when a tile holds more
+//    than a slot (dense graphs).
 //  - The forward. A block owns up to 8 target rows x every head, one
 //    thread a (row, head) pair (64 threads at 8 heads: an SM holds 8 such
 //    blocks, so one block's wait on its gathers hides behind the others'
 //    streams), and walks source tiles of 1 KB of each row (256 f32 or 1024
-//    int8 columns); each thread folds its row's items into (m, l, acc[F])
+//    int8 columns); each thread folds its row's edges into (m, l, acc[F])
 //    in column order, rescaling when the running max grows. When the row
 //    blocks fill less than a wave (N = 2708: 339 blocks for 1056 places),
 //    the plan splits the source axis into S <= 8 ranges of whole tiles
@@ -105,9 +107,12 @@ template <> struct Adj<int8_t> {
 };
 
 // compiled feature width FB: (column, head) pairs a backward thread
-// accumulates and the blocks an SM holds (the plan mirrors both)
+// accumulates, edges whose loads a forward thread issues together, and
+// the blocks of 256 threads an SM holds (the plan mirrors PAIRS and
+// MIN_BLOCKS)
 template <int FB> struct Feat {
   static constexpr int PAIRS = FB <= 8 ? 4 : (FB <= 16 ? 2 : 1);
+  static constexpr int BATCH = FB <= 8 ? 4 : (FB <= 16 ? 2 : 1);
   static constexpr int MIN_BLOCKS = FB <= 16 ? 2 : 1;
 };
 
@@ -303,30 +308,14 @@ __device__ __forceinline__ void locate(const uint32_t* bits, const int* start,
 
 // ---- forward ----
 
-// smem: a ring of STAGES slots, each the larger of a tile (rows x 1 KB) and
-// one edge's items of every head (the items of an edge go into its tile's
-// slot once its bits are built); the tile's bits, its row index and a_dst
-// of the block's nt pairs. With a split, the start is reused for each
-// pair's (m, l, acc[FB]) partial.
+// smem: a ring of STAGES tiles (rows x 1 KB) and the tile's bits; with a
+// split, reused for each pair's (m, l, acc[FB]) partial
 template <typename T, int FB>
 struct FwdLayout {
   static constexpr int TN = FWD_ROW_BYTES / static_cast<int>(sizeof(T));
   static constexpr int WORDS = TN / 32;
-  __host__ __device__ static int slot(int rows, int heads) {
-    const int tile = rows * FWD_ROW_BYTES, items = heads * (FB + 1) * 4;
-    return ((tile > items ? tile : items) + 15) / 16 * 16;
-  }
-  __host__ __device__ static int bits_at(int rows, int heads) {
-    return STAGES * slot(rows, heads);
-  }
-  __host__ __device__ static int start_at(int rows, int heads) {
-    return bits_at(rows, heads) + rows * WORDS * 4;
-  }
-  __host__ __device__ static int adst_at(int rows, int heads) {
-    return start_at(rows, heads) + (rows + 4) / 4 * 16;
-  }
-  static int bytes(int rows, int heads, int split, int nt) {
-    const int main = adst_at(rows, heads) + nt * 4;
+  static int bytes(int rows, int split, int nt) {
+    const int main = STAGES * rows * FWD_ROW_BYTES + rows * WORDS * 4;
     const int partial = split > 1 ? nt * (FB + 2) * 4 : 0;
     return main > partial ? main : partial;
   }
@@ -336,10 +325,8 @@ struct FwdLayout {
 // columns [part * per_split, + per_split) with part = b % split; rows x
 // heads pairs rounded up to whole warps of threads (64 at 8 heads), so an
 // SM holds many small blocks whose barriers span few warps. Thread t owns
-// (row t / heads, head t % heads). A tile: its bits; the row index of
-// its edges; each (edge, head) item's score and x row, loaded by one
-// thread with every other item's loads in flight, into the tile's slot;
-// then each thread folds its row's items into (m, l, acc) in column order.
+// (row t / heads, head t % heads) and walks its row's edges in a tile
+// BATCH at a time, the loads of a batch issued together.
 template <typename T, int FB>
 __global__ void __launch_bounds__(THREADS, Feat<FB>::MIN_BLOCKS)
 flash_fwd_kernel(const float* __restrict__ a_src,
@@ -350,13 +337,10 @@ flash_fwd_kernel(const float* __restrict__ a_src,
                  float slope, int bf16, int vec) {
   using L = FwdLayout<T, FB>;
   constexpr int TN = L::TN, WORDS = L::WORDS;
+  constexpr int BATCH = Feat<FB>::BATCH;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int slot = L::slot(rows, heads);
-  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L::bits_at(rows, heads));
-  int* start = reinterpret_cast<int*>(smem + L::start_at(rows, heads));
-  float* s_adst = reinterpret_cast<float*>(smem + L::adst_at(rows, heads));
-  // a chunk of items: ce edges x every head, score then x[FB] each
-  const int ce = slot / ((FB + 1) * 4) / heads;
+  const int slot = rows * FWD_ROW_BYTES;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + STAGES * slot);
   const int tid = threadIdx.x, nt = blockDim.x;
   const int part = blockIdx.x % split;
   const int row0 = (blockIdx.x / split) * rows;
@@ -366,7 +350,7 @@ flash_fwd_kernel(const float* __restrict__ a_src,
   const int rr = tid / heads, hd = tid - rr * heads;
   const int i = row0 + rr;
   const bool active = rr < rows && i < r;
-  s_adst[tid] = active ? a_dst[(size_t)i * heads + hd] : 0.f;
+  const float adst = active ? a_dst[(size_t)i * heads + hd] : 0.f;
   float mrun = NEG_BIG, lrun = 0.f, acc[FB];
 #pragma unroll
   for (int q = 0; q < FB; ++q) acc[q] = 0.f;
@@ -394,52 +378,60 @@ flash_fwd_kernel(const float* __restrict__ a_src,
     const bool any =
         row_bits<T>(st, FWD_ROW_BYTES, rows, TN, WORDS, bits, nt);
     if (!__syncthreads_or(any)) continue;     // no edge in this tile
-    index_rows(bits, rows, WORDS, start);
-    __syncthreads();
-    const int edges = start[rows];
+    if (!active) continue;
     const int cb = c_begin + t * TN;
-    float* item_s = reinterpret_cast<float*>(st);   // the tile is spent
-    float* item_x = item_s + ce * heads;
-    for (int e0 = 0; e0 < edges; e0 += ce) {
-      const int ne = min(ce, edges - e0);
-      if (e0 > 0) __syncthreads();            // the last chunk is folded
-      for (int it = tid; it < ne * heads; it += nt) {
-        const int eh = it / heads, h = it - eh * heads;
-        int er, col;
-        locate(bits, start, rows, WORDS, e0 + eh, er, col);
-        const size_t jh = (size_t)(cb + col) * heads + h;
-        float xv[FB];
-        load_row<FB>(x + jh * f, f, xv);
-        item_s[it] = leaky(__ldg(a_src + jh) + s_adst[er * heads + h], slope);
+    // the row's edges in this tile, BATCH at a time: a batch's loads are
+    // issued together, then folded in column order
+    int js[BATCH];
+    int nb = 0;
+    auto fold = [&](int cnt) {
+      float sv[BATCH], xv[BATCH][FB];
 #pragma unroll
-        for (int q = 0; q < FB; ++q)
-          if (q < f) item_x[it * FB + q] = xv[q];
-      }
-      __syncthreads();
-      if (!active) continue;
-      const int hi = min(start[rr + 1], e0 + ne);
-      for (int e = max(start[rr], e0); e < hi; ++e) {
-        const int it = (e - e0) * heads + hd;
-        const float s = item_s[it];
-        if (s > mrun) {                       // the running max grows
-          const float c = expf(mrun - s);
-          lrun *= c;
-#pragma unroll
-          for (int q = 0; q < FB; ++q) acc[q] *= c;
-          mrun = s;
+      for (int k = 0; k < BATCH; ++k) {
+        if (k < cnt) {
+          const size_t jh = (size_t)js[k] * heads + hd;
+          sv[k] = __ldg(a_src + jh);
+          load_row<FB>(x + jh * f, f, xv[k]);
         }
-        const float p = expf(s - mrun);
-        lrun += p;
-        const float pc = bf16 ? round_bf16(p) : p;
+      }
 #pragma unroll
-        for (int q = 0; q < FB; ++q) {
-          if (q < f) {
-            const float xv = item_x[it * FB + q];
-            acc[q] = fmaf(pc, bf16 ? round_bf16(xv) : xv, acc[q]);
+      for (int k = 0; k < BATCH; ++k) {
+        if (k < cnt) {
+          const float s = leaky(sv[k] + adst, slope);
+          if (s > mrun) {                     // the running max grows
+            const float c = expf(mrun - s);
+            lrun *= c;
+#pragma unroll
+            for (int q = 0; q < FB; ++q) acc[q] *= c;
+            mrun = s;
           }
+          const float p = expf(s - mrun);
+          lrun += p;
+          const float pc = bf16 ? round_bf16(p) : p;
+#pragma unroll
+          for (int q = 0; q < FB; ++q)
+            if (q < f)
+              acc[q] = fmaf(pc, bf16 ? round_bf16(xv[k][q]) : xv[k][q],
+                            acc[q]);
+        }
+      }
+    };
+#pragma unroll 1
+    for (int w = 0; w < WORDS; ++w) {
+      uint32_t b = bits[rr * WORDS + w];
+      while (b) {
+        const int j = cb + w * 32 + __ffs(b) - 1;
+        b &= b - 1;
+#pragma unroll
+        for (int k = 0; k < BATCH; ++k)
+          if (k == nb) js[k] = j;
+        if (++nb == BATCH) {
+          fold(BATCH);
+          nb = 0;
         }
       }
     }
+    if (nb) fold(nb);
   }
   cp_async_wait<0>();
 
@@ -796,7 +788,7 @@ cudaError_t launch_fwd(const Args& a) {
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const int nt = (a.block * a.heads + 31) / 32 * 32;
   return launch(flash_fwd_kernel<T, FB>, static_cast<int>(blocks), nt,
-                      a.split, L::bytes(a.block, a.heads, a.split, nt),
+                      a.split, L::bytes(a.block, a.split, nt),
                       a.stream, a.a_src,
                       a.a_dst, static_cast<const T*>(a.adj), a.x, a.out,
                       a.m_out, a.l_out, a.n, a.r, a.heads, a.f, a.block,

@@ -10,11 +10,13 @@ named). Variants that need other code are built from a text-edited copy of
 (all at once, one nvcc each); the edited copies are removed after the
 build. Probes (default: all):
 
-  ablation  the kernels with parts taken out (timing only; the results are
-            wrong): the forward with its bits but no edge work, and its
-            adjacency stream alone; the backward without its row fold,
-            without its column fold, with its bits but no edge work, and its
-            stream alone; then the kernels themselves.
+  ablation  the kernels with their gathered arrays marked evict-last in
+            L2 (a prefetch at block start), then with parts taken out
+            (timing only; the results are wrong): the forward with its bits
+            but no edge work, and its adjacency stream alone; the backward
+            without its row fold, without its column fold, with its bits but
+            no edge work, and its stream alone; then the kernels
+            themselves.
 
 Prints one JSON object a measurement, and the card's name and power limit.
 """
@@ -41,9 +43,8 @@ SRC_PATH = os.path.join(ROOT, "laplace_gnn_torch", "csrc",
                         "flash_attention.cu")
 OUT = os.path.join(ROOT, "chiprun_out", "probe")
 
-FWD_EDGES = ("    index_rows(bits, rows, WORDS, start);\n    __syncthreads();\n"
-             "    const int edges = start[rows];",
-             "    continue;\n    const int edges = 0;")
+FWD_EDGES = ("    if (!active) continue;\n    const int cb = c_begin + t * TN;",
+             "    continue;\n    const int cb = c_begin + t * TN;")
 FWD_BITS = ("    const bool any =\n        row_bits<T>(st, FWD_ROW_BYTES, rows, "
             "TN, WORDS, bits, nt);", "    const bool any = false;")
 BWD_ROW_FOLD = ("        ws_d[(size_t)row0 * heads + p] = sum;", "")
@@ -58,7 +59,36 @@ BWD_BITS = ("    const bool any = row_bits<T>(st, ld, TR, cols, wpr, rowb, "
             "    col_bits<T>(st, ld, GROUPS, cols, colb);",
             "    const bool any = false;")
 
+# the gathered arrays marked evict-last in L2 at block start, each block
+# prefetching its share of their 128-byte lines
+PREFETCH = r"""
+__device__ __forceinline__ void keep_in_l2(const void* p, size_t bytes) {
+  const size_t per = (bytes + gridDim.x - 1) / gridDim.x;
+  const size_t end = min(bytes, (blockIdx.x + 1) * per);
+  for (size_t off = blockIdx.x * per + threadIdx.x * 128; off < end;
+       off += (size_t)blockDim.x * 128)
+    asm volatile("prefetch.global.L2::evict_last [%0];" ::
+                 "l"(static_cast<const char*>(p) + off));
+}
+"""
+FWD_KEEP = ("  const float adst = active ? a_dst[(size_t)i * heads + hd] : 0.f;",
+            "  const float adst = active ? a_dst[(size_t)i * heads + hd] : 0.f;\n"
+            "  keep_in_l2(x, (size_t)n * heads * f * 4);\n"
+            "  keep_in_l2(a_src, (size_t)n * heads * 4);")
+BWD_KEEP = ("  float* ws_d = ws_adst + (size_t)cblk * r * heads;",
+            "  float* ws_d = ws_adst + (size_t)cblk * r * heads;\n"
+            "  keep_in_l2(x, (size_t)n * heads * f * 4);\n"
+            "  keep_in_l2(g, (size_t)r * heads * f * 4);\n"
+            "  keep_in_l2(a_src, (size_t)n * heads * 4);\n"
+            "  keep_in_l2(a_dst, (size_t)r * heads * 4);\n"
+            "  keep_in_l2(m, (size_t)r * heads * 4);\n"
+            "  keep_in_l2(linv, (size_t)r * heads * 4);\n"
+            "  keep_in_l2(dvec, (size_t)r * heads * 4);")
+KEEP_FN = ("// ---- the adjacency stream ----",
+           PREFETCH + "\n// ---- the adjacency stream ----")
+
 VARIANTS = {
+    "keep_in_l2": [KEEP_FN, FWD_KEEP, BWD_KEEP],
     "fwd_bits_only": [FWD_EDGES],
     "fwd_stream_only": [FWD_EDGES, FWD_BITS],
     "bwd_no_row_fold": [BWD_ROW_FOLD],
