@@ -40,8 +40,9 @@
 //    than a slot (dense graphs).
 //  - The forward. A block owns up to 8 target rows x every head, one
 //    thread a (row, head) pair (64 threads at 8 heads: an SM holds 8 such
-//    blocks, so one block's wait on its gathers hides behind the others'
-//    streams), and walks source tiles of 1 KB of each row (256 f32 or 1024
+//    blocks, or 16 of 4 rows where the plan halves them, so one block's
+//    wait on its gathers hides behind the others' streams), and walks
+//    source tiles of 1 KB of each row (256 f32 or 1024
 //    int8 columns); each thread folds its row's edges into (m, l, acc[F])
 //    in column order, rescaling when the running max grows. When the row
 //    blocks fill less than a wave (N = 2708: 339 blocks for 1056 places),

@@ -55,9 +55,8 @@ F_BLOCKS = (1, 8, 16, 32, 64)
 BWD_PAIRS = {1: 4, 8: 4, 16: 2, 32: 1, 64: 1}
 # blocks of 256 threads an SM holds (the kernels' __launch_bounds__
 # minimum), by F; a forward block of fewer threads fits that many times
-# more, up to the 8 its shared memory allows
+# more, as far as its shared memory allows (~3 KB a row: 64 // rows)
 BLOCKS_PER_SM = {1: 2, 8: 2, 16: 2, 32: 1, 64: 1}
-FWD_MAX_BLOCKS_PER_SM = 8
 
 
 def _attn_dtype(attn_dtype) -> Optional[torch.dtype]:
@@ -213,8 +212,11 @@ def plan(n: int, r: int, heads: int, f: int, adj_dtype: torch.dtype,
 
     - Forward: a block owns ``block`` target rows x every head (one thread
       a (row, head) pair: the largest power of two <= 8 that fits 256
-      threads; 64 threads at 8 heads) and walks the source axis in tiles
-      of 1 KB of each row (256 f32 or 1024 int8 columns).
+      threads, 64 threads at 8 heads, or half that when the smaller
+      blocks still fill a wave: more, smaller blocks an SM hide the
+      edges' gathers better at N = 16384, fewer are faster at 2708) and
+      walks the source axis in tiles of 1 KB of each row (256 f32 or 1024
+      int8 columns).
     - Backward: a block of 256 threads owns ``block`` source columns x
       every head, 128 columns (512 bytes of an f32 row) unless the heads
       and the compiled feature width leave fewer (``BWD_PAIRS`` pairs a
@@ -244,12 +246,15 @@ def plan(n: int, r: int, heads: int, f: int, adj_dtype: torch.dtype,
         tile = (BWD_TILE_ROWS[adj_dtype], block)
         blocks, walked, step = _cdiv(n, block), r, tile[0]
     else:
+        def wave_of(rows):
+            return min(64 // rows, BLOCKS_PER_SM[fb] * THREADS
+                       // fwd_threads(rows, heads)) * sms
         block = _pow2_floor(min(FWD_MAX_ROWS, THREADS // heads))
+        if block > 1 and _cdiv(r, block // 2) >= wave_of(block // 2):
+            block //= 2
+        wave = wave_of(block)
         tile = (block, FWD_ROW_BYTES // es)
         blocks, walked, step = _cdiv(r, block), n, tile[1]
-        wave = min(FWD_MAX_BLOCKS_PER_SM,
-                   BLOCKS_PER_SM[fb] * THREADS // fwd_threads(block, heads)
-                   ) * sms
     # a backward block's rows start block * es bytes after the previous one
     align = adj_ptr | (n * es) | (block * es if backward else 0)
     vec = next(v for v in (16, 8, 4, 2, 1) if align % v == 0)

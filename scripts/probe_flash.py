@@ -10,8 +10,11 @@ named). Variants that need other code are built from a text-edited copy of
 (all at once, one nvcc each); the edited copies are removed after the
 build. Probes (default: all):
 
+  rows      the forward on blocks of 8 rows and of 4, in the order 8, 4,
+            4, 8 (the plan takes 4 where such blocks fill a wave);
   ablation  the kernels with their gathered arrays marked evict-last in
-            L2 (a prefetch at block start), then with parts taken out
+            L2 (a prefetch at block start), the forward batching 8 edges
+            (not 4), then with parts taken out
             (timing only; the results are wrong): the forward with its bits
             but no edge work, and its adjacency stream alone; the backward
             without its row fold, without its column fold, with its bits but
@@ -87,8 +90,12 @@ BWD_KEEP = ("  float* ws_d = ws_adst + (size_t)cblk * r * heads;",
 KEEP_FN = ("// ---- the adjacency stream ----",
            PREFETCH + "\n// ---- the adjacency stream ----")
 
+FWD_BATCH8 = ("  static constexpr int BATCH = FB <= 8 ? 4 : (FB <= 16 ? 2 : 1);",
+              "  static constexpr int BATCH = FB <= 8 ? 8 : (FB <= 16 ? 4 : 2);")
+
 VARIANTS = {
     "keep_in_l2": [KEEP_FN, FWD_KEEP, BWD_KEEP],
+    "fwd_batch8": [FWD_BATCH8],
     "fwd_bits_only": [FWD_EDGES],
     "fwd_stream_only": [FWD_EDGES, FWD_BITS],
     "bwd_no_row_fold": [BWD_ROW_FOLD],
@@ -172,7 +179,27 @@ def probe_ablation():
         torch.cuda.empty_cache()
 
 
-PROBES = {"ablation": probe_ablation}
+def probe_rows():
+    """The forward with blocks of 8 and of 4 rows (the plan halves the
+    rows when the smaller blocks still fill a wave) at the main shapes."""
+    real = fa.plan
+    for n, f in ((16384, 8), (16384, 1), (2708, 8), (2708, 1)):
+        a_src, a_dst, mask, h, _ = operands(n, f)
+        row = {"probe": "rows", "n": n, "f": f,
+               "plan_rows": real(n, n, cs.GAT_HEADS, f, mask.dtype,
+                                 mask.data_ptr(), 132, False).block}
+        for rows in (8, 4, 4, 8):
+            fa.plan = lambda *a, rows=rows: real(*a)._replace(
+                block=rows, tile=(rows, real(*a).tile[1]))
+            row.setdefault(f"rows{rows}", []).append(cs.cold_ms(
+                torch, lambda: fa.flash_fwd(a_src, a_dst, mask, h)))
+        fa.plan = real
+        print(json.dumps(row), flush=True)
+        del a_src, a_dst, mask, h
+        torch.cuda.empty_cache()
+
+
+PROBES = {"ablation": probe_ablation, "rows": probe_rows}
 
 
 def main(argv=None) -> int:

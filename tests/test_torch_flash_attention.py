@@ -208,7 +208,7 @@ def test_plan_split_fills_one_wave_of_the_card(n, sms, dtype, backward):
         blocks, walked, step = _axes(p, n, n, backward)
         per_sm = T.BLOCKS_PER_SM[T.f_block(f)]
         if not backward:          # small blocks: more of them an SM
-            per_sm = min(T.FWD_MAX_BLOCKS_PER_SM,
+            per_sm = min(64 // p.block,
                          per_sm * T.THREADS // T.fwd_threads(p.block, 8))
         wave = per_sm * sms
         tiles = -(-walked // step)
@@ -235,6 +235,11 @@ def test_plan_at_the_timed_shapes():
     # 8 rows x 8 heads: 64 threads, 8 blocks an SM
     assert (fwd.block, fwd.tile, fwd.per_split) == (8, (8, 256), 1024)
     assert T.fwd_threads(fwd.block, 8) == 64
+    # at N = 16384 blocks of half the rows (one warp, 16 an SM) still fill
+    # a wave, and hide the edges' gathers better
+    big = T.plan(16384, 16384, 8, 8, F32, 0, 132, False)
+    assert (big.block, big.split) == (4, 1)
+    assert T.plan(16384, 5461, 8, 8, F32, 0, 132, False).block == 8
     # backward rows of 512 bytes: 128 f32 columns a block
     assert (bwd.block, bwd.tile, bwd.per_split) == (128, (64, 128), 384)
     assert T.plan(2708, 2708, 8, 8, I8, 0, 132, False).tile == (8, 1024)
