@@ -10,7 +10,8 @@ Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
   2. hold the ``core_spmm`` kernel against its plain PyTorch version at the
      main paths' shapes (CORE_CASES: the trainer's N = 2708 with d = 64 and
-     7, plain and transposed; the Jacobians' folded d = 12250 and 112000;
+     7, plain and transposed; the hyperstep pullback's folded d = 49 and
+     448, transposed; the Jacobians' folded d = 12250 and 112000;
      GCN's int8 at N = 2708 and 16384 and raw f32) and time it cold with
      CUDA events beside the plain version, torch.matmul on the
      pre-binarized matrix (f32; bf16 too at the wide widths) and its bound
@@ -19,8 +20,9 @@ Phases, each fatal:
      d = 1, 65, 129, bf16 t, transposed raw and int8); every call is
      repeated and must give the same bits;
   3. run the STE-GCN marglik trainer (``marglik_optimization``, fused
-     kernel path, symmetric) at Cora's width on a synthetic Cora-shaped
-     graph for a few epochs with two hyperstep rounds, with the kernel's
+     kernel path, symmetric, type-2 KFAC through the vmapped pullback) at
+     Cora's width on a synthetic Cora-shaped graph for a few epochs with
+     two hyperstep rounds, with the kernel's
      launch counter set to 0 just before and read just after (and its
      launches inside train steps and hypersteps counted apart); then time
      one train step and one hyperstep and count their launches; check the
@@ -74,8 +76,24 @@ Phases, each fatal:
  10. run the experiment entry point (``training/experiment.py::main``) as
      a user does, on a Cora-shaped synthetic npz dataset with a k-NN initial
      graph and the Cora STE-GCN config cut to 6 epochs (``fused=False``,
-     as the JAX package runs it: no kernel launches), and check that it
-     writes its stats.
+     as the JAX package runs it: no kernel launches), then again for 2
+     epochs with ``--fisher_type type-2-sketch --sketch_size 4
+     --column_chunk 2 --fisher_seed 3``, and check that each writes its
+     stats;
+ 11. curvature: one hyperstep of the phase-3 STE-GCN per option of
+     CURVATURE_OPTIONS (type-2 with ``column_chunk`` None and 2,
+     type-2-fork, type-2-sketch with k = 4, mc with 2 samples, empirical,
+     forward-only, ``kfac_approx="reduce"``, ``hessian_structure="diag"``)
+     and one on the column loop that the vmapped pullback replaced
+     (patched in), each with its wall ms (median of 5, CUDA events), device
+     ms and device launches (torch.profiler), ``core_spmm`` launches and
+     peak memory; the vmapped type-2 must launch fewer kernels than the
+     loop and agree with it; then every option and
+     ``hessian_structure="full"`` on a small graph against the float64 CPU
+     path with the same draws (1e-2 relative); then the phase-6 GAT's
+     -log marglik at N = 2708 with ``diag_probes`` 8 (``probe_batch`` None
+     and 4), timed with its peak memory beside the exact blocks', two
+     calls to the same bits and no flash launch.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -92,6 +110,7 @@ each source's ptxas report to ``chiprun_out/build_<source>.log``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -221,14 +240,17 @@ def make_graph(np, rng):
 
 
 # the core_spmm calls of the main paths, timed: (case, N, d, adjacency,
-# transposes). Trainer: STE-GCN layer 1 (d = 64) and layer 2 / the KFAC
-# pullback columns (d = 7). Jacobians: one chunk of JAC_CHUNK test nodes x C
-# one-hot cotangents folded into the feature axis by _CoreFn's vmap rule
-# (C x C at layer 2, C x HIDDEN at layer 1). GCN: fused="int8" at Cora's
-# size, "auto" at N = 16384 (where it switches to int8), fused=True (raw f32)
+# transposes). Trainer: STE-GCN layer 1 (d = 64) and layer 2 (d = 7). The
+# hyperstep's KFAC pullback: the C columns folded into the feature axis by
+# _CoreFn's vmap rule (C x C at layer 2, C x HIDDEN at layer 1).
+# Jacobians: one chunk of JAC_CHUNK test nodes x C one-hot cotangents,
+# folded the same way. GCN: fused="int8" at Cora's size, "auto" at N =
+# 16384 (where it switches to int8), fused=True (raw f32)
 CORE_CASES = [
     ("trainer_layer1", N_NODES, HIDDEN, "f32_bin", (False, True)),
     ("trainer_layer2", N_NODES, N_CLASS, "f32_bin", (False, True)),
+    ("pullback_layer2", N_NODES, N_CLASS * N_CLASS, "f32_bin", (True,)),
+    ("pullback_layer1", N_NODES, N_CLASS * HIDDEN, "f32_bin", (True,)),
     ("jacobians_layer2", N_NODES, 250 * N_CLASS * N_CLASS, "f32_bin",
      (True,)),
     ("jacobians_layer1", N_NODES, 250 * N_CLASS * HIDDEN, "f32_bin",
@@ -883,7 +905,7 @@ def gat_model(torch, X, adj, impl, n_layers=2, **kw):
                generator=torch.Generator().manual_seed(0), **kw)
 
 
-def gat_programs(model, n_train):
+def gat_programs(model, n_train, **curvature):
     from laplace_gnn_torch.training.marglik_gnn import TrainingPrograms
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in model.params().items()}
@@ -891,7 +913,7 @@ def gat_programs(model, n_train):
         model, params, lr=1e-2, weight_decay=5e-4, lr_adj=0.1,
         weight_decay_adj=0.0, momentum_adj=0.0, grad_norm=False,
         hessian_structure="kron", subset_of_weights="all",
-        prior_precision=1.0, N=n_train)
+        prior_precision=1.0, N=n_train, **curvature)
 
 
 def phase_gat_step(torch, card):
@@ -1401,25 +1423,268 @@ def phase_experiment(torch, np, kernels, card):
             "--norm", "none", "--n_epochs", "6", "--n_epochs_burnin", "2",
             "--marglik_frequency", "2", "--n_hypersteps", "2",
             "--base_out_dir", os.path.join(d, "results")]
-    for k in kernels:
-        k.launches = 0
-    out, secs, gb = timed(torch, lambda: run_main(argv, device="cuda"))
-    launches = {k.name: k.launches for k in kernels}
-    if any(launches.values()):
-        raise AssertionError(f"the fused=False experiment launched {launches}")
-    stats_path = os.path.join(d, "results", "coralike", "stats.pkl")
-    stats = out["results"][0]["stats"]
-    flat = [v for crit in stats.values() for vs in crit.values()
-            for split in vs for v in split]
-    if not (os.path.exists(stats_path) and stats["marglik"] and flat
-            and all(math.isfinite(float(v)) for v in flat)):
-        raise AssertionError(f"experiment stats: {stats}")
-    print(f"experiment (coralike, stegcn, knng k=3, 6 epochs, 1 split): "
-          f"{secs:.3f} s (host clock), peak {gb:.3f} GB, launches "
-          f"{launches}; stats.pkl written: {os.path.exists(stats_path)}; "
-          f"summary {out['summary']}  [{card}]", flush=True)
-    return {"s": secs, "peak_gb": gb, "summary": out["summary"],
-            "stats": stats}
+    # then 2 epochs with the sketched Fisher in blocks of 2 columns (one
+    # hyperstep at epoch 1): the curvature options as a user passes them
+    sketch = argv + ["--n_epochs", "2", "--n_epochs_burnin", "1",
+                     "--marglik_frequency", "1", "--n_hypersteps", "1",
+                     "--fisher_type", "type-2-sketch", "--sketch_size", "4",
+                     "--column_chunk", "2", "--fisher_seed", "3",
+                     "--base_out_dir", os.path.join(d, "results_sketch")]
+    runs = {}
+    for name, args, label in (
+            ("results", argv, "6 epochs"),
+            ("results_sketch", sketch, "2 epochs, type-2-sketch k 4, "
+             "column_chunk 2, fisher_seed 3")):
+        for k in kernels:
+            k.launches = 0
+        out, secs, gb = timed(torch, lambda: run_main(args, device="cuda"))
+        launches = {k.name: k.launches for k in kernels}
+        if any(launches.values()):
+            raise AssertionError(f"the fused=False experiment launched "
+                                 f"{launches}")
+        stats_path = os.path.join(d, name, "coralike", "stats.pkl")
+        stats = out["results"][0]["stats"]
+        flat = [v for crit in stats.values() for vs in crit.values()
+                for split in vs for v in split]
+        if not (os.path.exists(stats_path) and stats["marglik"] and flat
+                and all(math.isfinite(float(v)) for v in flat)):
+            raise AssertionError(f"experiment {name} stats: {stats}")
+        print(f"experiment (coralike, stegcn, knng k=3, {label}, 1 split): "
+              f"{secs:.3f} s (host clock), peak {gb:.3f} GB, launches "
+              f"{launches}; stats.pkl written: {os.path.exists(stats_path)};"
+              f" summary {out['summary']}  [{card}]", flush=True)
+        runs[name] = {"s": secs, "peak_gb": gb, "summary": out["summary"],
+                      "stats": stats}
+    return {**runs["results"], "sketch": runs["results_sketch"]}
+
+
+# the hyperstep's curvature options, one hyperstep each: (label, options of
+# make_neg_marglik_fn, or "kfac_approx" / "hessian_structure")
+CURVATURE_OPTIONS = [
+    ("type-2", {}),
+    ("type-2, column_chunk 2", {"column_chunk": 2}),
+    ("type-2-fork", {"fisher_type": "type-2-fork"}),
+    ("type-2-sketch, k 4", {"fisher_type": "type-2-sketch",
+                            "sketch_size": 4}),
+    ("mc, 2 samples", {"fisher_type": "mc", "mc_samples": 2}),
+    ("empirical", {"fisher_type": "empirical"}),
+    ("forward-only", {"fisher_type": "forward-only"}),
+    ("kfac_approx reduce", {"kfac_approx": "reduce"}),
+    ("diag", {"hessian_structure": "diag"}),
+]
+
+
+def kron_default(kfac_approx: str):
+    """A context in which ``GGNBackend.kron`` takes ``kfac_approx`` unless
+    told otherwise: make_neg_marglik_fn passes none (nor does JAX's)."""
+    from laplace_gnn_torch.curvature.interface import GGNBackend
+    kron = GGNBackend.kron
+
+    def run(self, X, y, N, **kw):
+        kw.setdefault("kfac_approx", kfac_approx)
+        return kron(self, X, y, N, **kw)
+    return mock.patch.object(GGNBackend, "kron", run)
+
+
+def loop_kfac_factors(model, params, X, y, likelihood, N=None,
+                      return_output=False, **_):
+    """Type-2 'expand' factors the way the port ran them before the vmapped
+    pullback: a tap forward, then one ``torch.autograd.grad(create_graph=
+    True)`` per output column, and X^T X / N formed every call. Patched
+    into the backend to count that route's launches beside the new one."""
+    import torch
+    from laplace_gnn_torch.curvature.kfac import (_input_cov, _owning_site,
+                                                  posterior_split)
+    from laplace_gnn_torch.curvature.losses import loss_hessian_sqrt
+    from laplace_gnn_torch.laplace.kron import Kron
+    from laplace_gnn_torch.nn.module import TapCollector
+    from laplace_gnn_torch.utils.pytree import merge_split, named_leaves
+    w, frozen, sites = posterior_split(model, params)
+    names = [s["name"] for s in sites]
+    taps = TapCollector(perturb=True)
+    out = model.apply(merge_split(w, frozen), X, taps=taps)
+    acts = {n: a for n, a, _ in taps.records}
+    S = loss_hessian_sqrt(likelihood, out)
+    B = {}
+    for c in range(S.shape[-1]):
+        gs = torch.autograd.grad(out, [taps.eps[n] for n in names],
+                                 grad_outputs=S[:, :, c], create_graph=True,
+                                 retain_graph=True)
+        for n, g in zip(names, gs):
+            B[n] = g.T @ g + B.get(n, 0)
+    by_prefix = {tuple(s["param_path"]): s for s in sites}
+    kfacs = []
+    for leaf_name, leaf in named_leaves(w):
+        n = _owning_site(leaf_name, by_prefix, sites)["name"]
+        kfacs.append([B[n]] if leaf.dim() == 1
+                     else [B[n], _input_cov(acts[n], "expand", N)])
+    return (Kron(kfacs), out) if return_output else Kron(kfacs)
+
+
+def time_hyperstep(torch, core, fn, reps: int = 5) -> dict:
+    """One hyperstep: median wall ms of ``reps`` (CUDA events), core_spmm
+    launches a step (the wrapper's counter, set to 0 just before), device
+    ms and device launches (torch.profiler), peak GB above the allocated."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    core.launches = 0
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    launches = core.launches / reps
+    prof = profile_step(torch, fn)
+    _, _, gb = timed(torch, fn)
+    return {"ms": sorted(ms)[reps // 2], "ms_all": ms,
+            "core_spmm_launches": launches, "device_ms": prof["device_ms"],
+            "device_launches": prof["n_kernels"],
+            "core_spmm_ms": prof["core_spmm_ms"], "peak_gb": gb}
+
+
+def phase_curvature(torch, np, state, card):
+    """One hyperstep of the phase-3 STE-GCN (fused kernel path, Cora's
+    width) per curvature option, and one on the column loop the vmapped
+    pullback replaced; each must launch core_spmm, the vmapped type-2
+    fewer times than the loop."""
+    from laplace_gnn_torch.curvature import interface
+    from laplace_gnn_torch.ops.fused_spmm import core
+    from laplace_gnn_torch.training.marglik_gnn import TrainingPrograms
+    model, params, y, perm = state
+    tr = perm[:N_TRAIN]
+    idx = torch.as_tensor(tr, device="cuda")
+    yy = torch.as_tensor(y[tr], device="cuda")
+    cfg = dict(lr=1e-3, lr_adj=0.8, momentum_adj=0.9, weight_decay=5e-5,
+               weight_decay_adj=5e-4, grad_norm=True,
+               hessian_structure="kron", subset_of_weights="all")
+    loop = mock.patch.object(interface, "compute_kfac_factors",
+                             loop_kfac_factors)
+    rows = {}
+    for label, opts, patch in (
+            [(label, opts, None) for label, opts in CURVATURE_OPTIONS]
+            + [("type-2, column loop", {}, loop)]):
+        opts = dict(opts)
+        approx = opts.pop("kfac_approx", "expand")
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in
+             params.items()}
+        progs = TrainingPrograms(model, p, N=N_TRAIN, prior_precision=1.0,
+                                 **{**cfg, **opts})
+        with kron_default(approx), patch or contextlib.nullcontext():
+            r = time_hyperstep(torch, core,
+                               lambda: progs.hyperstep(idx, yy))
+            nm = float(progs.neg_marglik_eval(idx, yy))
+        if r["core_spmm_launches"] <= 0 or not math.isfinite(nm):
+            raise AssertionError(f"hyperstep {label}: {r}, value {nm}")
+        r["neg_marglik"] = nm
+        rows[label] = r
+        print(f"hyperstep [{label}]: median {r['ms']:.3f} ms over 5 (CUDA "
+              f"events), {r['device_ms']:.3f} ms of device time in "
+              f"{r['device_launches']} device launches, "
+              f"{r['core_spmm_launches']:g} core_spmm launches "
+              f"({r['core_spmm_ms']:.3f} ms), peak {r['peak_gb']:.3f} GB; "
+              f"-log marglik {nm:.4f}  [{card}]", flush=True)
+        del progs
+        torch.cuda.empty_cache()
+    vm, lp = rows["type-2"], rows["type-2, column loop"]
+    if vm["core_spmm_launches"] >= lp["core_spmm_launches"]:
+        raise AssertionError(f"the vmapped pullback launched core_spmm "
+                             f"{vm['core_spmm_launches']} times, the loop "
+                             f"{lp['core_spmm_launches']}")
+    rel = abs(vm["neg_marglik"] - lp["neg_marglik"]) / abs(lp["neg_marglik"])
+    if rel > 1e-4:
+        raise AssertionError(f"vmapped vs loop -log marglik: relative {rel}")
+    print(f"type-2 hyperstep: vmapped pullback {vm['core_spmm_launches']:g} "
+          f"core_spmm launches, {vm['device_ms']:.3f} device ms; column loop "
+          f"{lp['core_spmm_launches']:g}, {lp['device_ms']:.3f} device ms; "
+          f"-log marglik agrees to {rel:.1e}  [{card}]", flush=True)
+    return rows
+
+
+def phase_curvature_small(torch, np):
+    """Every option of CURVATURE_OPTIONS and hessian_structure "full" on a
+    small graph: the kernel path in float32 on the card against the
+    float64 CPU path (which the CPU tests hold to the JAX package), with
+    the same draws: the sketch and the probes come from CPU generators,
+    and the MC labels of the CPU run are replayed on the card (a label
+    drawn at a float32 output could cross a class boundary). Held at 1e-2
+    relative, as the kernel rounds its operands to bf16."""
+    from laplace_gnn_torch.curvature import kfac
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.training.marglik_gnn import make_neg_marglik_fn
+    rng = np.random.default_rng(9)
+    n, f = 96, 24
+    X = rng.standard_normal((n, f))
+    adj = (rng.random((n, n)) < 0.08).astype(float)
+    adj = np.minimum(adj + adj.T, 1.0)
+    np.fill_diagonal(adj, 0.0)
+    y = rng.integers(0, N_CLASS, n)
+    out = {}
+    for label, opts in CURVATURE_OPTIONS + [("full", {
+            "hessian_structure": "full"})]:
+        opts = dict(opts)
+        structure = opts.pop("hessian_structure", "kron")
+        approx = opts.pop("kfac_approx", "expand")
+        labels, vals = [], {}
+        draw = kfac._draw_label
+        for dev, dt in (("cpu", torch.float64), ("cuda", torch.float32)):
+            m = STEGCN(f, 16, N_CLASS, 2, X, adj, dropout_p=0.0, fused=True,
+                       symmetric=True, device=dev, dtype=dt,
+                       generator=torch.Generator().manual_seed(0))
+            fn = make_neg_marglik_fn(m, "classification", structure, "all",
+                                     N=40, fisher_seed=3, **opts)
+            replay = iter(labels)
+
+            def recorded(seed, i, lik, f_, dev=dev):
+                if dev == "cpu":
+                    labels.append(draw(seed, i, lik, f_))
+                    return labels[-1]
+                return next(replay).to(f_.device)
+
+            with mock.patch.object(kfac, "_draw_label", recorded), \
+                    kron_default(approx):
+                vals[dev] = float(fn(m.params(), torch.arange(40, device=dev),
+                                     torch.as_tensor(y[:40], device=dev)
+                                     ).detach())
+        rel = abs(vals["cuda"] - vals["cpu"]) / abs(vals["cpu"])
+        if not math.isfinite(vals["cuda"]) or rel > 1e-2:
+            raise AssertionError(f"small-graph {label}: {vals}")
+        out[label] = {**vals, "rel": rel}
+        print(f"small-graph -log marglik [{label}]: card {vals['cuda']:.6f} "
+              f"vs CPU f64 {vals['cpu']:.6f} (relative {rel:.2e}, held at "
+              f"1e-2)", flush=True)
+    return out
+
+
+def phase_gat_probes(torch, gat_run, state, kernels, card):
+    """The phase-6 GAT's -log marglik at N = 2708 with the Hutchinson
+    estimate of the attention parameters' diagonal (8 probes, in sequence
+    and 4 a vmapped step) beside the exact blocks' time and memory from
+    phase 6; two calls must give the same bits, and no flash kernel runs
+    (jvp_safe)."""
+    model, _, y, perm = state
+    tr = perm[:N_TRAIN]
+    part, parts = run_parts(torch, kernels, card, "GAT -log marglik")
+    none = {"flash_fwd": 0, "flash_bwd": 0}
+    vals = {}
+    for probe_batch in (None, 4):
+        progs = gat_programs(model, N_TRAIN, diag_probes=8,
+                             probe_batch=probe_batch)
+        name = f"diag_probes 8, probe_batch {probe_batch}"
+        a = part(name, lambda: progs.neg_marglik_eval(tr, y[tr]), none)
+        b = progs.neg_marglik_eval(tr, y[tr])
+        if not (torch.equal(a, b) and math.isfinite(float(a))):
+            raise AssertionError(f"GAT {name}: {float(a)} then {float(b)}")
+        vals[name] = float(a)
+        del progs
+        torch.cuda.empty_cache()
+    print(f"GAT -log marglik at N={GAT_N_TRAIN}: probes {vals}; exact "
+          f"blocks (phase 6) {gat_run['neg_marglik_eval_s']:.3f} s, "
+          f"{gat_run['neg_marglik_peak_gb']:.3f} GB  [{card}]", flush=True)
+    return {"parts": parts, "values": vals}
 
 
 def build_kernels(cuda_build, out_dir, names=None):
@@ -1517,12 +1782,17 @@ def main(argv=None) -> int:
     mm_rows, mm_checks = phase_matmul(torch, mm, peaks)
     counted = (fs.core, fa.flash_fwd, fa.flash_bwd, mm.matmul)
     laplace = phase_laplace_stegcn(torch, np, stegcn_state, counted, card)
-    del stegcn_state
     laplace_small = phase_laplace_small_reference(torch, np)
     gat_laplace = phase_laplace_gat(torch, np, gat_state, counted, card)
-    del gat_state
     torch.cuda.empty_cache()
     experiment = phase_experiment(torch, np, counted, card)
+
+    curvature = phase_curvature(torch, np, stegcn_state, card)
+    del stegcn_state
+    curvature_small = phase_curvature_small(torch, np)
+    gat_probes = phase_gat_probes(torch, gat_run, gat_state, counted, card)
+    del gat_state
+    torch.cuda.empty_cache()
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -1572,6 +1842,9 @@ def main(argv=None) -> int:
                    "matmul": mm_rows, "laplace_stegcn": laplace,
                    "laplace_small": laplace_small,
                    "laplace_gat": gat_laplace, "experiment": experiment,
+                   "curvature": curvature,
+                   "curvature_small": curvature_small,
+                   "gat_probes": gat_probes,
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,4 +1,6 @@
-from .interface import CurvatureBackend, GGNBackend
-from .kfac import compute_kfac_factors
+from .interface import (BACKEND_REGISTRY, CurvatureBackend, EFBackend,
+                        GGNBackend, HessianBackend)
+from .kfac import KFACOperator, compute_kfac_factors
 
-__all__ = ["CurvatureBackend", "GGNBackend", "compute_kfac_factors"]
+__all__ = ["BACKEND_REGISTRY", "CurvatureBackend", "EFBackend", "GGNBackend",
+           "HessianBackend", "KFACOperator", "compute_kfac_factors"]

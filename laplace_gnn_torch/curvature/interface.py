@@ -1,6 +1,7 @@
 """Curvature backends (counterpart of
-``laplace_gnn_tpu/curvature/interface.py``; the KFAC path and the
-Jacobians of the GLM predictive so far).
+``laplace_gnn_tpu/curvature/interface.py``): the GGN / Fisher, empirical
+Fisher and exact-Hessian backends, each with ``full``, ``diag`` and (but
+the Hessian) ``kron``, and the Jacobians of the GLM predictive.
 
 A backend is built from (model, params, likelihood); the posterior subset
 ``w`` excludes parameters named ``adj``/``norms``, optionally restricted
@@ -15,8 +16,20 @@ import torch
 
 from ..utils.pytree import (DEFAULT_EXCLUDE, merge_split, named_leaves,
                             tree_size, tree_vector)
-from .kfac import compute_kfac_factors, posterior_split
-from .losses import get_loss_fn, likelihood_factor
+from .kfac import _fold_seed, compute_kfac_factors, posterior_split
+from .losses import (get_loss_fn, likelihood_factor, loss_hessian,
+                     sample_labels)
+
+
+def _middle_draw(m: int, likelihood: str, f: torch.Tensor) -> torch.Tensor:
+    """The m-th draw of the stochastic GGN middle at ``f``: standard
+    normals (M, C) for regression, else class indices (M,) drawn from
+    softmax(f). Seeded from 0 whatever the backend's seed, as in JAX."""
+    g = torch.Generator().manual_seed(_fold_seed(0, m))
+    if likelihood == "regression":
+        return torch.randn(f.shape, generator=g, dtype=torch.float64).to(
+            f.device, f.dtype)
+    return sample_labels(g, "classification", f)
 
 
 class CurvatureBackend:
@@ -52,17 +65,13 @@ class CurvatureBackend:
         """factor * sum-loss on one batch."""
         return self.factor * self.lossfunc(self.model_fn(self.w, X), y)
 
-    def jacobians(self, X, chunk_size: Optional[int] = None
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(Js (M, C, P), f (M, C)) w.r.t. the flat posterior vector.
-
-        One ``torch.func.vjp`` of the model, whose pullback runs under
-        ``torch.func.vmap`` over one-hot output cotangents: the M * C rows
-        of a chunk are one batched backward pass (through the ``core``
-        kernel, its vmap rule folds them into the feature axis, so a chunk
-        is one launch per aggregation). ``chunk_size`` samples (C rows
-        each) per pass bounds the peak memory; None (the default, unless
-        the constructor's ``jac_chunk_size`` is set) runs all M at once."""
+    def _jacobian_rows(self, X):
+        """(f (M, C), rows): one ``torch.func.vjp`` of the model, and
+        ``rows(m0, m1)``, the Jacobian rows (m1 - m0, C, P) of samples
+        m0..m1 w.r.t. the flat posterior vector. Their pullbacks run under
+        ``torch.func.vmap`` over one-hot output cotangents, as one batched
+        backward pass (through the ``core`` kernel, its vmap rule folds them
+        into the feature axis: one launch per aggregation)."""
         names = [n for n, _ in named_leaves(self.w)]
 
         def f(*leaves):
@@ -70,52 +79,232 @@ class CurvatureBackend:
 
         out, pullback = torch.func.vjp(f, *(self.w[n] for n in names))
         M, C = out.shape
-        chunk_size = (chunk_size if chunk_size is not None
-                      else self.jac_chunk_size)
-        if chunk_size is not None and chunk_size < 1:
-            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
-        chunk = M if chunk_size is None else min(chunk_size, M)
         rows_of = torch.func.vmap(pullback)
         cls = torch.arange(C, device=out.device)
-        Js = []
-        for m0 in range(0, M, chunk):
-            ms = torch.arange(m0, min(m0 + chunk, M), device=out.device)
+
+        def rows(m0, m1):
+            ms = torch.arange(m0, m1, device=out.device)
             b = ms.shape[0]
             cot = torch.zeros((b, C, M, C), dtype=out.dtype, device=out.device)
             cot[torch.arange(b, device=out.device)[:, None], cls[None, :],
                 ms[:, None], cls[None, :]] = 1.0
             grads = rows_of(cot.reshape(b * C, M, C))
-            Js.append(torch.cat([g.reshape(b * C, -1) for g in grads],
-                                dim=1).reshape(b, C, -1))
-        return torch.cat(Js), out.detach()
+            return torch.cat([g.reshape(b * C, -1) for g in grads],
+                             dim=1).reshape(b, C, -1)
+
+        return out, rows
+
+    def _chunk(self, M: int, chunk_size: Optional[int]) -> int:
+        chunk_size = (chunk_size if chunk_size is not None
+                      else self.jac_chunk_size)
+        if chunk_size is not None and chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        return M if chunk_size is None else min(chunk_size, M)
+
+    def jacobians(self, X, chunk_size: Optional[int] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(Js (M, C, P), f (M, C)) w.r.t. the flat posterior vector.
+
+        ``chunk_size`` samples (C rows each) per vmapped pass bounds the
+        peak memory; None (the default, unless the constructor's
+        ``jac_chunk_size`` is set) runs all M at once. f is the model
+        output of the same forward, differentiable like the Jacobians."""
+        out, rows = self._jacobian_rows(X)
+        M = out.shape[0]
+        chunk = self._chunk(M, chunk_size)
+        return torch.cat([rows(m0, min(m0 + chunk, M))
+                          for m0 in range(0, M, chunk)]), out
+
+    def gradients(self, X, y) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-sample gradients Gs (M, P) of the raw sum-loss and the total
+        raw loss (no likelihood factor): one vjp of the per-sample losses,
+        its pullback vmapped over one-hot cotangents."""
+        names = [n for n, _ in named_leaves(self.w)]
+
+        def per_sample_losses(*leaves):
+            f = self.model_fn(dict(zip(names, leaves)), X)
+            return torch.func.vmap(
+                lambda fi, yi: self.lossfunc(fi[None], yi[None]))(f, y)
+
+        losses, pullback = torch.func.vjp(per_sample_losses,
+                                          *(self.w[n] for n in names))
+        eye = torch.eye(losses.shape[0], dtype=losses.dtype,
+                        device=losses.device)
+        grads = torch.func.vmap(pullback)(eye)
+        Gs = torch.cat([g.reshape(eye.shape[0], -1) for g in grads], dim=1)
+        return Gs, torch.sum(losses)
+
+    def full(self, X, y, N: Optional[int] = None):
+        raise NotImplementedError
+
+    def diag(self, X, y, N: Optional[int] = None):
+        raise NotImplementedError
 
     def kron(self, X, y, N: int, **kwargs):
         raise NotImplementedError
 
-    def _kron(self, X, y, N: int, fisher_type: str = "type-2",
-              kfac_approx: str = "expand", mixed_diag: bool = True):
+    _kron_fisher_type: str = "type-2"
+
+    def _kron(self, X, y, N: int, fisher_type: Optional[str] = None,
+              mc_samples: int = 1, kfac_approx: str = "expand", seed: int = 0,
+              column_chunk: Optional[int] = None, mixed_diag: bool = True,
+              sketch_size: int = 8, diag_probes: Optional[int] = None,
+              probe_batch: Optional[int] = None):
         """Factors on this batch times the likelihood factor, and the loss
         from the same forward. ``mixed_diag`` (on by default): parameters
-        outside the Linear tap sites get exact-diagonal blocks."""
+        outside the Linear tap sites get diagonal blocks."""
         kron, out = compute_kfac_factors(
             self.model, self.params, X, y, likelihood=self.likelihood,
-            fisher_type=fisher_type,
-            kfac_approx=kfac_approx, exclude=self.exclude,
-            last_layer=self.last_layer, N=N, return_output=True,
-            mixed_diag=mixed_diag)
+            fisher_type=fisher_type or self._kron_fisher_type,
+            mc_samples=mc_samples, kfac_approx=kfac_approx,
+            exclude=self.exclude, last_layer=self.last_layer, N=N, seed=seed,
+            return_output=True, column_chunk=column_chunk,
+            mixed_diag=mixed_diag, sketch_size=sketch_size,
+            diag_probes=diag_probes, probe_batch=probe_batch)
         kron = kron * self.factor
         loss = self.factor * self.lossfunc(out, y)
         return loss, kron
 
 
 class GGNBackend(CurvatureBackend):
-    """GGN / type-2 Fisher backend (MC Fisher is not ported yet)."""
+    """GGN / type-2 Fisher backend. ``stochastic=True`` takes the MC Fisher
+    (``mc_samples`` draws); ``fisher_type`` sets the Kron flavour directly
+    (e.g. 'type-2-sketch' with ``sketch_size``), and the other options go
+    to :func:`compute_kfac_factors`, so the Laplace classes reach every
+    flavour through ``backend_kwargs``."""
+
+    def __init__(self, *args, stochastic: bool = False, mc_samples: int = 1,
+                 fisher_type: Optional[str] = None, sketch_size: int = 8,
+                 column_chunk: Optional[int] = None,
+                 diag_probes: Optional[int] = None,
+                 probe_batch: Optional[int] = None,
+                 seed: int = 0, **kwargs):
+        self.stochastic = stochastic
+        self.mc_samples = mc_samples
+        self.fisher_type = fisher_type
+        self.sketch_size = sketch_size
+        self.column_chunk = column_chunk
+        self.diag_probes = diag_probes
+        self.probe_batch = probe_batch
+        self.seed = seed
+        super().__init__(*args, **kwargs)
+
+    @property
+    def _kron_fisher_type(self):
+        if self.fisher_type is not None:
+            return self.fisher_type
+        return "mc" if self.stochastic else "type-2"
+
+    def _functional_middle(self, f):
+        """Middle matrix (M, C, C): the exact loss Hessian for
+        classification, None (identity) for regression, or the MC mean of
+        outer products of sampled output gradients when stochastic."""
+        if self.stochastic:
+            F = torch.zeros(f.shape + f.shape[-1:], dtype=f.dtype,
+                            device=f.device)
+            for m in range(self.mc_samples):
+                draw = _middle_draw(m, self.likelihood, f)
+                if self.likelihood == "regression":
+                    g = -draw                               # f - N(f, 1)
+                else:
+                    p = torch.softmax(f, dim=-1)
+                    g = p - torch.nn.functional.one_hot(
+                        draw, f.shape[-1]).to(f.dtype)
+                F = F + torch.einsum("bc,bk->bck", g, g) / self.mc_samples
+            return F
+        if self.likelihood == "regression":
+            return None
+        return loss_hessian(self.likelihood, f)
 
     def _jacs(self, X):
         """The GLM predictive's Jacobians. The closed-form last-layer
         Jacobians wait with the last-layer flavours (ROADMAP Queue 1 item
-        14), so a last-layer backend takes the generic ones."""
+        14(a)); no GNN of the JAX package takes them either."""
         return self.jacobians(X)
+
+    def full(self, X, y, N=None):
+        Js, f = self._jacs(X)
+        H_lik = self._functional_middle(f)
+        if H_lik is None:
+            H = torch.einsum("bcp,bcq->pq", Js, Js)
+        else:
+            H = torch.einsum("bcp,bck,bkq->pq", Js, H_lik, Js)
+        return self.factor * self.lossfunc(f, y), H
+
+    def diag(self, X, y, N=None, row_chunk: Optional[int] = None):
+        """GGN / Fisher diagonal with bounded memory: ``row_chunk`` samples
+        (C Jacobian rows each) per vmapped pass, the diagonal summed over
+        the passes, so the whole (M, C, P) stack never exists. The default
+        chunk keeps a pass's rows near 256 MB (``jac_chunk_size`` if set)."""
+        f, rows = self._jacobian_rows(X)
+        M, C = f.shape
+        if row_chunk is None:
+            row_chunk = self.jac_chunk_size
+        if row_chunk is None:
+            row_chunk = max(1, 2 ** 28 // max(1, C * tree_size(self.w) * 4))
+        chunk = self._chunk(M, row_chunk)
+        H_lik = self._functional_middle(f)
+        h = None
+        for m0 in range(0, M, chunk):
+            Js = rows(m0, min(m0 + chunk, M))
+            hc = (torch.einsum("bcp,bcp->p", Js, Js) if H_lik is None else
+                  torch.einsum("bcp,bck,bkp->p", Js, H_lik[m0:m0 + chunk], Js))
+            h = hc if h is None else h + hc
+        return self.factor * self.lossfunc(f, y), h
+
+    def kron(self, X, y, N, **kw):
+        kw.setdefault("mc_samples", self.mc_samples)
+        kw.setdefault("sketch_size", self.sketch_size)
+        kw.setdefault("column_chunk", self.column_chunk)
+        kw.setdefault("diag_probes", self.diag_probes)
+        kw.setdefault("probe_batch", self.probe_batch)
+        kw.setdefault("seed", self.seed)
+        return self._kron(X, y, N, **kw)
+
+
+class EFBackend(CurvatureBackend):
+    """Empirical Fisher backend: outer products of per-sample gradients."""
+
+    _kron_fisher_type = "empirical"
+
+    def full(self, X, y, N=None):
+        Gs, loss = self.gradients(X, y)
+        return self.factor * loss, self.factor * (Gs.T @ Gs)
+
+    def diag(self, X, y, N=None):
+        Gs, loss = self.gradients(X, y)
+        return self.factor * loss, self.factor * torch.sum(Gs * Gs, dim=0)
 
     def kron(self, X, y, N, **kw):
         return self._kron(X, y, N, **kw)
+
+
+class HessianBackend(CurvatureBackend):
+    """Exact-Hessian backend. The Hessian is reverse over reverse
+    (``jacrev`` of ``jacrev``): the fused aggregation has a differentiable
+    backward and no forward-mode rule."""
+
+    def full(self, X, y, N=None):
+        names = [n for n, _ in named_leaves(self.w)]
+        shapes = [self.w[n].shape for n in names]
+        sizes = [self.w[n].numel() for n in names]
+
+        def total_loss(flat_w):
+            w_ = dict(zip(names, (p.reshape(s) for p, s in zip(
+                torch.split(flat_w, sizes), shapes))))
+            return self.lossfunc(self.model_fn(w_, X), y)
+
+        H = torch.func.jacrev(torch.func.jacrev(total_loss))(
+            tree_vector(self.w))
+        return self.loss(X, y), self.factor * H
+
+    def diag(self, X, y, N=None):
+        loss, H = self.full(X, y)
+        return loss, torch.diagonal(H)
+
+
+BACKEND_REGISTRY = {
+    "ggn": GGNBackend,
+    "ef": EFBackend,
+    "hessian": HessianBackend,
+}

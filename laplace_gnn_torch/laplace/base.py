@@ -12,7 +12,7 @@ run ``self.model``, which keeps the kernels. The parameters are held
 detached. Random draws come from a ``torch.Generator`` (seeded with 0
 unless one is passed), where JAX splits a key.
 
-Waiting with ROADMAP Queue 1 item 14 (each raises ``NotImplementedError``):
+Waiting with ROADMAP Queue 1 item 14(a) (each raises ``NotImplementedError``):
 ``optimize_prior_precision`` with ``_gridsearch`` / ``_validate``, and
 ``state_dict`` / ``load_state_dict``.
 """
@@ -32,7 +32,7 @@ from .enums import LinkApprox, Likelihood, PredType
 from .predictive import glm_classification_predictive
 
 _WAITS = ("is not ported yet: it waits with optimize_prior_precision "
-          "(ROADMAP Queue 1 item 14)")
+          "(ROADMAP Queue 1 item 14(a))")
 
 
 class BaseLaplace:
@@ -358,8 +358,8 @@ class ParametricLaplace(BaseLaplace):
 
     def state_dict(self) -> dict:
         raise NotImplementedError(
-            "state_dict is not ported yet (ROADMAP Queue 1 item 14)")
+            "state_dict is not ported yet (ROADMAP Queue 1 item 14(a))")
 
     def load_state_dict(self, state_dict: dict) -> None:
         raise NotImplementedError(
-            "load_state_dict is not ported yet (ROADMAP Queue 1 item 14)")
+            "load_state_dict is not ported yet (ROADMAP Queue 1 item 14(a))")

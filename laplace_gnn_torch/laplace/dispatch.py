@@ -10,7 +10,8 @@ from .flavors import KronLaplace
 
 PORTED = {("all", "kron"): KronLaplace}
 
-# the JAX package's other flavours, each waiting with ROADMAP Queue 1 item 14
+# the JAX package's other flavours, each waiting with ROADMAP Queue 1
+# item 14(a)
 WAITING = {("all", "full"), ("all", "diag"), ("all", "lowrank"),
            ("all", "gp"), ("last_layer", "full"), ("last_layer", "kron"),
            ("last_layer", "diag"), ("last_layer", "gp"),
@@ -33,5 +34,5 @@ def Laplace(model, params, likelihood: str,
     if key in WAITING:
         raise NotImplementedError(
             f"the Laplace flavour {key} is not ported yet (ROADMAP Queue 1 "
-            f"item 14); ported: {sorted(PORTED)}")
+            f"item 14(a)); ported: {sorted(PORTED)}")
     raise ValueError(f"No Laplace flavor for {key}.")

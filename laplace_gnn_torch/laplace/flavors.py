@@ -1,6 +1,6 @@
 """Parametric Laplace flavours (counterpart of
 ``laplace_gnn_tpu/laplace/flavors.py``; ``KronLaplace`` so far — the full,
-diagonal and low-rank flavours wait with ROADMAP Queue 1 item 14)."""
+diagonal and low-rank flavours wait with ROADMAP Queue 1 item 14(a))."""
 
 from __future__ import annotations
 

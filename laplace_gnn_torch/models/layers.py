@@ -63,12 +63,14 @@ def _masked_attention_chunked(alpha_src, alpha_dst, adj, h, negative_slope,
     """:func:`_masked_attention_dense` over blocks of ``block`` target rows:
     peak attention memory block * N * H instead of R * N * H. Under
     reverse-mode autograd each block is checkpointed (its scores are
-    recomputed in the backward instead of stored); forward-mode
-    ``torch.func.jvp`` and ``vmap`` pass through. ``adj``/``alpha_dst`` may
-    cover only R <= N target rows."""
+    recomputed in the backward instead of stored). Under a ``torch.func``
+    transform (the curvature's vjp, jvp and vmap) the blocks run plainly:
+    those transforms take no checkpoint (its saved-tensor hooks).
+    ``adj``/``alpha_dst`` may cover only R <= N target rows."""
     R = adj.shape[0]
-    recompute = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (alpha_src, alpha_dst, h))
+    recompute = (torch.is_grad_enabled()
+                 and not torch._C._are_functorch_transforms_active()
+                 and any(t.requires_grad for t in (alpha_src, alpha_dst, h)))
 
     def one_block(a_dst_blk, adj_blk):
         return _masked_attention_dense(alpha_src, a_dst_blk, adj_blk, h,

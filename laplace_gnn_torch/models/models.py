@@ -92,13 +92,15 @@ class STEGCN(BaseGNN):
     def forward_adj(self, taps: Optional[TapCollector] = None):
         adj = self.adj
         if self.fused:
-            if taps is not None and taps.perturbed:
-                # Under KFAC tap perturbations the fused op's input s
-                # depends on the pullback variable. JAX then differentiates
-                # the op's forward rule as plain code in the outer (marglik)
-                # derivative, where the threshold has zero gradient, so the
-                # JAX package's fused hyperstep gradient w.r.t. adj is
-                # exactly zero. Detaching here reproduces that.
+            if ((taps is not None and taps.perturbed)
+                    or torch._C._are_functorch_transforms_active()):
+                # Under an inner vjp (the KFAC pullback, whose taps perturb
+                # the op's input, and the curvature's Jacobians) JAX
+                # differentiates the fused op's forward rule as plain code
+                # in the outer (marglik) derivative, where the threshold has
+                # zero gradient, so the JAX package's fused hyperstep
+                # gradient w.r.t. adj is exactly zero. Detaching here
+                # reproduces that.
                 adj = adj.detach()
             return FusedAdjOp(lambda s: ste_norm_aggregate(
                 adj, s, self.threshold, self.symmetric, self.sign_grad,

@@ -33,13 +33,6 @@ from .marglik_gnn import (fit_laplace, marglik_optimization, mean_eval)
 
 BASE_OUT_DIR = "results"
 
-# curvature-estimator options of the JAX experiment that the port's KFAC
-# does not take yet (ROADMAP Queue 1 item 14), with their defaults
-WAITING_OPTIONS = {"sketch_size": 8, "column_chunk": None, "mc_samples": 1,
-                   "diag_probes": None, "probe_batch": None,
-                   "fisher_seed": 0}
-
-
 def _to_bool(value: str) -> bool:
     return str(value).lower() in ["true", "1", "yes", "y"]
 
@@ -203,17 +196,6 @@ def model_specific_args(args_dict, hp, train_indices) -> dict:
     }[args_dict["model_type"]]
 
 
-def _check_ported_options(args_dict) -> None:
-    for key, default in WAITING_OPTIONS.items():
-        value = args_dict.get(key, default)
-        if value is not None and default is not None:
-            value = type(default)(value)
-        if value != default:
-            raise NotImplementedError(
-                f"--{key} {value} is not ported yet (ROADMAP Queue 1 item "
-                f"14); the port's KFAC runs the exact type-2 curvature")
-
-
 def run_experiment(args_dict: dict, verbose: bool = True,
                    device=None) -> dict:
     """Splits x repeats x hyperparameter combinations, each trained by
@@ -221,7 +203,6 @@ def run_experiment(args_dict: dict, verbose: bool = True,
     the aggregated stats and writes them to ``<out_dir>/stats.pkl``."""
     dev = resolve_device(device)
     args_dict = load_config(args_dict)
-    _check_ported_options(args_dict)
     if verbose:
         print("Arguments:")
         for k, v in args_dict.items():
@@ -310,6 +291,12 @@ def run_experiment(args_dict: dict, verbose: bool = True,
                         early_stop=args_dict["early_stop"],
                         model_type=args_dict["model_type"],
                         fisher_type=args_dict.get("fisher_type", "type-2"),
+                        sketch_size=int(args_dict.get("sketch_size", 8)),
+                        column_chunk=args_dict.get("column_chunk"),
+                        mc_samples=int(args_dict.get("mc_samples", 1)),
+                        diag_probes=args_dict.get("diag_probes"),
+                        probe_batch=args_dict.get("probe_batch"),
+                        fisher_seed=int(args_dict.get("fisher_seed", 0)),
                         learned_graphs_dir=learned_graphs_dir,
                         verbose=verbose, device=dev)
 

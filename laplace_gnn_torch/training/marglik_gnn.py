@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..curvature.interface import GGNBackend
-from ..curvature.kfac import _owning_site, _posterior_sites
+from ..curvature.kfac import (_owning_site, _posterior_sites,
+                              _static_input_cov)
 from ..curvature.losses import cross_entropy_sum, likelihood_factor
 from ..device import resolve_device
 from ..graph.data import adj_to_edge_index
@@ -43,18 +44,25 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
                         temperature: float = 1.0,
                         sigma_noise: float = 1.0,
                         cache_static_factors: bool = True,
-                        fisher_type: str = "type-2"):
-    """-log marglik of a freshly fit KFAC Laplace approximation as a
-    function of the full params dict; gradients flow into ``params["adj"]``
-    through the KFAC factors.
+                        fisher_type: str = "type-2",
+                        column_chunk=None,
+                        sketch_size: int = 8,
+                        mc_samples: int = 1,
+                        diag_probes=None,
+                        probe_batch=None,
+                        fisher_seed: int = 0):
+    """-log marglik of a freshly fit Laplace approximation as a function of
+    the full params dict; gradients flow into ``params["adj"]`` through the
+    curvature. ``hessian_structure``: "kron" (KFAC, with the fisher type and
+    the estimator options of :func:`compute_kfac_factors`), "diag" or
+    "full" (the GGN of ``GGNBackend.diag`` / ``full``).
 
-    ``cache_static_factors``: the first GCNConv's KFAC input covariance
-    A0 = X^T X / N is constant in every parameter, so its eigenvalues
-    (an F x F eigendecomposition, F = 1433 on Cora) are computed once here
-    and only they enter the per-hyperstep log-determinant."""
-    if hessian_structure != "kron":
-        raise NotImplementedError(
-            f"hessian_structure {hessian_structure!r} is not ported yet")
+    ``cache_static_factors`` (kron): the first GCNConv's KFAC input
+    covariance A0 = X^T X / N is constant in every parameter, so its
+    eigenvalues (an F x F eigendecomposition, F = 1433 on Cora) are
+    computed once here and only they enter the per-hyperstep
+    log-determinant; the KFAC pass reuses A0 itself, formed once per model
+    (``curvature/kfac.py::_static_input_cov``)."""
     # the curvature runs forward-mode tangent passes (mixed-diagonal blocks
     # of GAT's attention parameters), which the flash kernels' Function
     # cannot take: use the clone with the plain attention (same math)
@@ -62,10 +70,11 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
     H_factor = 1.0 / (sigma_noise ** 2) / temperature
 
     static_A_eigvals: dict = {}
-    if (cache_static_factors and getattr(model, "first_tap_static", False)
+    if (cache_static_factors and hessian_structure == "kron"
+            and getattr(model, "first_tap_static", False)
             and subset_of_weights == "all"):
-        X = model.X
-        lam = torch.linalg.eigvalsh((X.T @ X) / N)
+        lam = torch.linalg.eigvalsh(_static_input_cov(
+            model, N, "expand", model.X.dtype))
         site0 = model.tap_sites(None)[0]["name"]
         # the backend returns `kron * factor`, which scales a len-2 group's
         # A by sqrt(factor); bake that in so the cache is exact
@@ -135,7 +144,17 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
     def fn(params, X, y):
         backend = GGNBackend(model, params, likelihood,
                              last_layer=(subset_of_weights == "last_layer"))
-        loss, H = backend.kron(X, y, N=N, fisher_type=fisher_type)
+        if hessian_structure == "kron":
+            loss, H = backend.kron(X, y, N=N, fisher_type=fisher_type,
+                                   column_chunk=column_chunk,
+                                   sketch_size=sketch_size,
+                                   mc_samples=mc_samples,
+                                   diag_probes=diag_probes,
+                                   probe_batch=probe_batch, seed=fisher_seed)
+        else:
+            closure = {"diag": backend.diag,
+                       "full": backend.full}[hessian_structure]
+            loss, H = closure(X, y, N=N)
         loglik = -H_factor * loss
         if likelihood == "regression":
             n_outputs = y.shape[-1] if y.dim() > 1 else 1
@@ -145,7 +164,14 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
         prior_diag = prior_precision * torch.ones_like(theta)
         logdet_prior = torch.sum(torch.log(prior_diag))
         scatter = torch.sum(theta ** 2 * prior_diag)
-        logdet_post = _kron_logdet(H, _group_sites(backend), prior_precision)
+        if hessian_structure == "kron":
+            logdet_post = _kron_logdet(H, _group_sites(backend),
+                                       prior_precision)
+        elif hessian_structure == "diag":
+            logdet_post = torch.sum(torch.log(H_factor * H + prior_diag))
+        else:
+            logdet_post = torch.linalg.slogdet(
+                H_factor * H + torch.diag(prior_diag))[1]
         marglik = loglik - 0.5 * (logdet_post - logdet_prior + scatter)
         return -marglik
 
@@ -174,7 +200,7 @@ class TrainingPrograms:
     def __init__(self, model, params: dict, *, lr, weight_decay, lr_adj,
                  weight_decay_adj, momentum_adj, grad_norm,
                  hessian_structure, subset_of_weights, prior_precision, N,
-                 fisher_type="type-2"):
+                 fisher_type="type-2", **curvature):
         self.model = model
         self.params = params
         self.grad_norm = grad_norm
@@ -188,7 +214,7 @@ class TrainingPrograms:
             weight_decay=weight_decay_adj)
         self.neg_marglik_fn = make_neg_marglik_fn(
             model, "classification", hessian_structure, subset_of_weights, N,
-            prior_precision, fisher_type=fisher_type)
+            prior_precision, fisher_type=fisher_type, **curvature)
 
     def _detached(self) -> dict:
         return {k: v.detach() for k, v in self.params.items()}
@@ -263,6 +289,12 @@ def marglik_optimization(model, params: dict,
                          early_stop: bool = False,
                          model_type: str = "stegcn",
                          fisher_type: str = "type-2",
+                         sketch_size: int = 8,
+                         column_chunk: Optional[int] = None,
+                         mc_samples: int = 1,
+                         diag_probes: Optional[int] = None,
+                         probe_batch: Optional[int] = None,
+                         fisher_seed: int = 0,
                          learned_graphs_dir: Optional[str] = None,
                          verbose: bool = True,
                          log_every: int = 20,
@@ -301,7 +333,10 @@ def marglik_optimization(model, params: dict,
         weight_decay_adj=weight_decay_adj, momentum_adj=momentum_adj,
         grad_norm=grad_norm, hessian_structure=hessian_structure,
         subset_of_weights=subset_of_weights, prior_precision=prior_precision,
-        N=N, fisher_type=fisher_type)
+        N=N, fisher_type=fisher_type, sketch_size=sketch_size,
+        column_chunk=column_chunk, mc_samples=mc_samples,
+        diag_probes=diag_probes, probe_batch=probe_batch,
+        fisher_seed=fisher_seed)
 
     tr_np = train_indices.cpu().numpy()
     eval_indices = (np.setdiff1d(np.arange(len(y_np)), tr_np)

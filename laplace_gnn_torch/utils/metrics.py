@@ -3,7 +3,7 @@ probabilities (numpy; the port's own copy of
 ``laplace_gnn_tpu/utils/metrics.py:14-88``).
 
 ``validate`` and the prior-precision helpers wait with
-``optimize_prior_precision`` (ROADMAP Queue 1 item 14).
+``optimize_prior_precision`` (ROADMAP Queue 1 item 14(a)).
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ from laplace_gnn_tpu.models.layers import GATConv as JGATConv
 from laplace_gnn_tpu.models.layers import _masked_attention_chunked as jchunk
 from laplace_gnn_tpu.training import marglik_gnn as JT
 from laplace_gnn_torch import models as TM
+from laplace_gnn_torch.curvature import kfac as TKfac
 from laplace_gnn_torch.curvature.kfac import compute_kfac_factors as tkfac
 from laplace_gnn_torch.models.layers import _masked_attention_chunked
 from laplace_gnn_torch.training import marglik_gnn as TT
@@ -142,7 +143,7 @@ def test_jvp_safe_semantics():
 # --- KFAC with exact-diagonal blocks ---
 
 @pytest.mark.parametrize("last_layer", [False, True])
-def test_kfac_mixed_diag_blocks_match_jax(last_layer):
+def test_kfac_mixed_diag_blocks_match_jax(last_layer, monkeypatch):
     jm, tm, jp, y = _models(None, concat=True)
     idx = np.arange(M)
     jk = jkfac(jm, jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(idx),
@@ -161,9 +162,30 @@ def test_kfac_mixed_diag_blocks_match_jax(last_layer):
     with pytest.raises(ValueError, match="mixed_diag"):
         tkfac(tm, params_from_numpy(jp, device="cpu"), _t(idx), _t(y[:M]),
               "classification", N=M)
-    with pytest.raises(NotImplementedError, match="diag_probes"):
-        tkfac(tm, params_from_numpy(jp, device="cpu"), _t(idx), _t(y[:M]),
-              "classification", N=M, mixed_diag=True, diag_probes=4)
+    # the Hutchinson blocks, with JAX's probes in place of the port's: in
+    # sequence and 3 probes a vmapped step (the same numbers)
+    monkeypatch.setattr(TKfac, "_probe_signs", lambda seed, n, M_, K, dt,
+                        dev=None: _t(jax.random.rademacher(
+                            jax.random.fold_in(jax.random.PRNGKey(seed),
+                                               104729), (n, M_, K)).astype(
+                            jnp.float64)))
+    jk = jkfac(jm, jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(idx),
+               jnp.asarray(y[:M]), "classification", N=M, mixed_diag=True,
+               last_layer=last_layer, diag_probes=4, seed=2)
+    tks = {}
+    for probe_batch in (None, 3):
+        tks[probe_batch] = tkfac(
+            tm, params_from_numpy(jp, device="cpu"), _t(idx), _t(y[:M]),
+            "classification", N=M, mixed_diag=True, last_layer=last_layer,
+            diag_probes=4, seed=2, probe_batch=probe_batch)
+        for gt_, gj in zip(tks[probe_batch].kfacs, jk.kfacs):
+            for a, b in zip(gt_, gj):
+                np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                           rtol=1e-10, atol=1e-12)
+    for ga, gb in zip(tks[None].kfacs, tks[3].kfacs):
+        for a, b in zip(ga, gb):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-13,
+                                       atol=1e-15)
 
 
 # --- -log marglik and the trainer ---
@@ -194,6 +216,39 @@ def test_gat_neg_marglik_matches_jax(impl):
     np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-10)
     # the value is differentiable w.r.t. the weights, through the KFAC and
     # the exact-diagonal blocks, and matches jax.grad
+    names = [k for k in tp if k != "adj"]
+    grads = torch.autograd.grad(tv, [tp[k] for k in names])
+    jflat = dict(named_leaves(params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jg), device="cpu")))
+    for k, g in zip(names, grads):
+        np.testing.assert_allclose(g.numpy(), jflat[k].numpy(), rtol=1e-8,
+                                   atol=1e-10, err_msg=k)
+
+
+@pytest.mark.parametrize("probe_batch", [None, 2])
+def test_gat_neg_marglik_with_probes_matches_jax(probe_batch, monkeypatch):
+    """The GAT -log marglik with Hutchinson blocks (4 probes, JAX's draws
+    in place of the port's; in sequence or 2 a vmapped step, checkpointed
+    under the outer derivative): value and weight gradient against JAX."""
+    monkeypatch.setattr(TKfac, "_probe_signs", lambda seed, n, M_, K, dt,
+                        dev=None: _t(jax.random.rademacher(
+                            jax.random.fold_in(jax.random.PRNGKey(seed),
+                                               104729), (n, M_, K)).astype(
+                            jnp.float64)))
+    jm, tm, jp, y = _models("flash")
+    idx = np.arange(M)
+    kw = dict(prior_precision=0.7, diag_probes=4, probe_batch=probe_batch,
+              fisher_seed=5)
+    jfn = JT.make_neg_marglik_fn(jm, "classification", "kron", "all", N=M,
+                                 **kw)
+    jv, jg = jax.value_and_grad(jfn)(jax.tree_util.tree_map(jnp.asarray, jp),
+                                     jnp.asarray(idx), jnp.asarray(y[:M]))
+    tfn = TT.make_neg_marglik_fn(tm, "classification", "kron", "all", N=M,
+                                 **kw)
+    tp = {k: v.requires_grad_(True)
+          for k, v in params_from_numpy(jp, device="cpu").items()}
+    tv = tfn(tp, _t(idx), _t(y[:M]))
+    np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-10)
     names = [k for k in tp if k != "adj"]
     grads = torch.autograd.grad(tv, [tp[k] for k in names])
     jflat = dict(named_leaves(params_from_numpy(

@@ -10,11 +10,13 @@ import torch
 from laplace_gnn_tpu import models as JM
 from laplace_gnn_tpu.curvature import losses as JLo
 from laplace_gnn_tpu.curvature.interface import GGNBackend as JB
+from laplace_gnn_tpu.curvature import kfac as JKfac
 from laplace_gnn_tpu.curvature.kfac import compute_kfac_factors as jkfac
 from laplace_gnn_tpu.laplace.kron import Kron as JKron
 from laplace_gnn_torch import models as TM
 from laplace_gnn_torch.curvature import losses as TLo
 from laplace_gnn_torch.curvature.interface import GGNBackend as TB
+from laplace_gnn_torch.curvature import kfac as TKfac
 from laplace_gnn_torch.curvature.kfac import compute_kfac_factors as tkfac
 from laplace_gnn_torch.laplace.kron import Kron as TKron
 from laplace_gnn_torch.utils.pytree import params_from_numpy
@@ -102,7 +104,7 @@ def _setup(cls="STEGCN", fused=True, seed=0):
 
 @pytest.mark.parametrize("cls,fused", [("STEGCN", True), ("STEGCN", False),
                                        ("GCN", True)])
-def test_kfac_factors_match_jax(cls, fused):
+def test_kfac_factors_match_jax(cls, fused, monkeypatch):
     jm, tm, jp, y = _setup(cls, fused)
     idx = np.arange(M)
     jk, jout = jkfac(jm, jax.tree_util.tree_map(jnp.asarray, jp),
@@ -118,9 +120,19 @@ def test_kfac_factors_match_jax(cls, fused):
         for a, b in zip(gt_, gj):
             np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
                                        rtol=1e-10, atol=1e-12)
-    with pytest.raises(NotImplementedError):
-        tkfac(tm, tp, torch.as_tensor(idx), torch.as_tensor(y[:M]),
-              "classification", fisher_type="mc")
+    # the MC Fisher with JAX's label draws in place of the port's
+    monkeypatch.setattr(TKfac, "_draw_label", lambda seed, m, lik, f: _t(
+        JKfac._draw_label(jax.random.fold_in(jax.random.PRNGKey(seed), m),
+                          lik, jnp.asarray(f.detach().numpy()))))
+    jk = jkfac(jm, jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(idx),
+               jnp.asarray(y[:M]), "classification", N=M, fisher_type="mc",
+               mc_samples=2, seed=1)
+    tk = tkfac(tm, tp, torch.as_tensor(idx), torch.as_tensor(y[:M]),
+               "classification", N=M, fisher_type="mc", mc_samples=2, seed=1)
+    for gt_, gj in zip(tk.kfacs, jk.kfacs):
+        for a, b in zip(gt_, gj):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                       rtol=1e-10, atol=1e-12)
 
 
 def test_kfac_factor_gradient_wrt_adj_matches_jax():

@@ -69,8 +69,11 @@ def test_neg_marglik_value_and_adj_gradient(fused, cache):
     np.testing.assert_allclose(ga.numpy(), jga, rtol=1e-8, atol=1e-12)
 
 
-def test_neg_marglik_last_layer_and_unported_structures():
-    jm, tm, jp, y = _setup(True)
+@pytest.mark.parametrize("fused", [True, False])
+def test_neg_marglik_last_layer_and_unported_structures(fused):
+    """The last-layer Kron value, and the "diag" and "full" GGN structures:
+    value and d/d adj, against JAX."""
+    jm, tm, jp, y = _setup(fused)
     idx = np.arange(M)
     jv = jax.jit(JT.make_neg_marglik_fn(jm, "classification", "kron",
                                         "last_layer", N=M))(
@@ -81,8 +84,23 @@ def test_neg_marglik_last_layer_and_unported_structures():
                                      torch.as_tensor(idx),
                                      torch.as_tensor(y[:M]))
     np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-12)
-    with pytest.raises(NotImplementedError):
-        TT.make_neg_marglik_fn(tm, "classification", "diag", "all", N=M)
+    for structure in ("diag", "full"):
+        jfn = JT.make_neg_marglik_fn(jm, "classification", structure, "all",
+                                     N=M, prior_precision=0.7)
+        jv, jg = jax.jit(jax.value_and_grad(jfn))(
+            jax.tree_util.tree_map(jnp.asarray, jp), jnp.asarray(idx),
+            jnp.asarray(y[:M]))
+        tfn = TT.make_neg_marglik_fn(tm, "classification", structure, "all",
+                                     N=M, prior_precision=0.7)
+        tp = {k: v.requires_grad_(True)
+              for k, v in params_from_numpy(jp, device="cpu").items()}
+        tv = tfn(tp, torch.as_tensor(idx), torch.as_tensor(y[:M]))
+        (ga,) = torch.autograd.grad(tv, tp["adj"], allow_unused=True)
+        ga = torch.zeros(N, N, dtype=torch.float64) if ga is None else ga
+        np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-10,
+                                   err_msg=structure)
+        np.testing.assert_allclose(ga.numpy(), np.asarray(jg["adj"]),
+                                   rtol=1e-8, atol=1e-12, err_msg=structure)
 
 
 @pytest.mark.parametrize("fused", [True, False])
