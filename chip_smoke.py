@@ -78,8 +78,9 @@ Phases, each fatal:
      graph and the Cora STE-GCN config cut to 6 epochs (``fused=False``,
      as the JAX package runs it: no kernel launches), then again for 2
      epochs with ``--fisher_type type-2-sketch --sketch_size 4
-     --column_chunk 2 --fisher_seed 3``, and check that each writes its
-     stats;
+     --column_chunk 2 --fisher_seed 3``, then for 2 epochs with
+     ``--model_type lorastegcn --lora_r 16 --hessian_structure diag``, and
+     check that each writes its stats;
  11. curvature: one hyperstep of the phase-3 STE-GCN per option of
      CURVATURE_OPTIONS (type-2 with ``column_chunk`` None and 2,
      type-2-fork, type-2-sketch with k = 4, mc with 2 samples, empirical,
@@ -93,9 +94,31 @@ Phases, each fatal:
      path with the same draws (1e-2 relative); then the phase-6 GAT's
      -log marglik at N = 2708 with ``diag_probes`` 8 (``probe_batch`` None
      and 4), timed with its peak memory beside the exact blocks', two
-     calls to the same bits and no flash launch.
+     calls to the same bits and no flash launch;
+ 12. the other dense models at Cora's width on the phase-3 synthetic graph
+     (DENSE_MODELS: GraphSAGE with and without a 5-neighbour sample,
+     STEGraphSAGE, LoRA-STE-GCN r 16, AttSTEGCN d_k 8, STEGCN fused with
+     layer and batch norms, GCN fused with residual Linears and STEGCN
+     with residual Linears, the last two with the "diag" structure):
+     ``marglik_optimization`` for 4 epochs (1 burn-in, one round of 2
+     hypersteps; none for GraphSAGE and GCN), each with its wall time,
+     peak memory and ``core_spmm`` launches, one train step and one
+     hyperstep timed; finite parameters, LoRA's hypersteps moving
+     ``adj_lora_*`` and not ``adj``; then each model's train-mode loss,
+     weight gradients and -log marglik on a small graph against the
+     float64 CPU path (1e-2);
+ 13. the Laplace flavours: DiagLaplace on the phase-3 STE-GCN (hidden 64,
+     P = 92231) and FullLaplace on an STE-GCN of hidden 16 (P = 23063)
+     over the same graph and learned adjacency: fit, log marglik, marglik
+     tuning of the prior precision (scalar and layerwise; 100 steps for
+     Diag, 5 for Full), a grid search of 20 values on the 500 validation
+     nodes, the probit predictive on 1000 nodes, 100 GLM predictive
+     samples and a ``state_dict`` round trip to the same bits, each part
+     with its time, peak memory and launches; then each flavour's log
+     marglik, tuned prior precision and probit probabilities on a small
+     graph against the float64 CPU path (1e-2).
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
+Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
 it runs phases 1 (``matmul.cu`` alone) and 7, and its last line is
 ``{"partial": ["matmul"]}``, never the ``ok`` line; ``--only
@@ -116,6 +139,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1402,8 +1426,10 @@ def phase_laplace_gat(torch, np, state, kernels, card):
 def phase_experiment(torch, np, kernels, card):
     """The experiment entry point as a user runs it, on a Cora-shaped
     synthetic graph written as an npz dataset, with the Cora section of
-    configs/knng/stegcn_config.yaml cut to 6 epochs. It runs fused=False,
-    as the JAX package does, so no kernel launches."""
+    configs/knng/stegcn_config.yaml cut to 6 epochs; then a sketched
+    Fisher, then LoRA-STE-GCN with the diagonal structure, 2 epochs each.
+    It runs fused=False, as the JAX package does, so no kernel
+    launches."""
     from laplace_gnn_torch.graph.data import adj_to_edge_index
     from laplace_gnn_torch.training.experiment import main as run_main
     d = os.path.join(ROOT, "chiprun_out", "experiment")
@@ -1430,11 +1456,19 @@ def phase_experiment(torch, np, kernels, card):
                      "--fisher_type", "type-2-sketch", "--sketch_size", "4",
                      "--column_chunk", "2", "--fisher_seed", "3",
                      "--base_out_dir", os.path.join(d, "results_sketch")]
+    # then LoRA-STE-GCN (r 16, the grid's smallest; the CLI's lora_alpha
+    # 16) with the diagonal GGN in its hypersteps and post-hoc fits
+    lora = argv + ["--model_type", "lorastegcn", "--lora_r", "16",
+                   "--hessian_structure", "diag", "--n_epochs", "2",
+                   "--n_epochs_burnin", "1", "--marglik_frequency", "1",
+                   "--n_hypersteps", "1",
+                   "--base_out_dir", os.path.join(d, "results_lora")]
     runs = {}
     for name, args, label in (
             ("results", argv, "6 epochs"),
             ("results_sketch", sketch, "2 epochs, type-2-sketch k 4, "
-             "column_chunk 2, fisher_seed 3")):
+             "column_chunk 2, fisher_seed 3"),
+            ("results_lora", lora, "lorastegcn r 16, diag, 2 epochs")):
         for k in kernels:
             k.launches = 0
         out, secs, gb = timed(torch, lambda: run_main(args, device="cuda"))
@@ -1449,13 +1483,22 @@ def phase_experiment(torch, np, kernels, card):
         if not (os.path.exists(stats_path) and stats["marglik"] and flat
                 and all(math.isfinite(float(v)) for v in flat)):
             raise AssertionError(f"experiment {name} stats: {stats}")
-        print(f"experiment (coralike, stegcn, knng k=3, {label}, 1 split): "
+        # the learned graphs (an N x N array each) would fill most of the
+        # run's output directory: check that they were written, then drop
+        strucs = [os.path.join(d, name, "coralike", x) for x in os.listdir(
+            os.path.join(d, name, "coralike")) if x.endswith("_strucs")]
+        if not any(os.listdir(x) for x in strucs):
+            raise AssertionError(f"experiment {name} wrote no learned graph")
+        for x in strucs:
+            shutil.rmtree(x)
+        print(f"experiment (coralike, knng k=3, {label}, 1 split): "
               f"{secs:.3f} s (host clock), peak {gb:.3f} GB, launches "
               f"{launches}; stats.pkl written: {os.path.exists(stats_path)};"
               f" summary {out['summary']}  [{card}]", flush=True)
         runs[name] = {"s": secs, "peak_gb": gb, "summary": out["summary"],
                       "stats": stats}
-    return {**runs["results"], "sketch": runs["results_sketch"]}
+    return {**runs["results"], "sketch": runs["results_sketch"],
+            "lora_diag": runs["results_lora"]}
 
 
 # the hyperstep's curvature options, one hyperstep each: (label, options of
@@ -1687,6 +1730,333 @@ def phase_gat_probes(torch, gat_run, state, kernels, card):
     return {"parts": parts, "values": vals}
 
 
+# the other dense models, as marglik_optimization trains them: (label,
+# model class, options, model_type, hessian_structure). GCN(res=True)
+# cannot take the Kron structure (as in JAX, its residual Linears are
+# untapped KFAC sites), so it runs "diag" like STEGCN(res=True)
+DENSE_MODELS = [
+    ("graphsage", "GraphSAGE", {}, "graphsage", "kron"),
+    ("graphsage, k 5", "GraphSAGE", {"num_sampled_nodes_per_hop": 5},
+     "graphsage", "kron"),
+    ("stegraphsage", "STEGraphSAGE", {"symmetric": True}, "stegraphsage",
+     "kron"),
+    ("lorastegcn, r 16", "LoRASTEGCN", {"r": 16, "lora_alpha": 16,
+                                        "symmetric": True}, "lorastegcn",
+     "kron"),
+    ("attstegcn, d_k 8", "AttSTEGCN", {"d_k": 8, "symmetric": True},
+     "attstegcn", "kron"),
+    ("stegcn fused, norm layer", "STEGCN", {"fused": True, "norm": "layer",
+                                            "symmetric": True}, "stegcn",
+     "kron"),
+    ("stegcn fused, norm batch", "STEGCN", {"fused": True, "norm": "batch",
+                                            "symmetric": True}, "stegcn",
+     "kron"),
+    ("gcn fused, res", "GCN", {"fused": True, "res": True}, "gcn", "diag"),
+    ("stegcn, res, diag", "STEGCN", {"res": True, "symmetric": True},
+     "stegcn", "diag"),
+]
+# the Cora section of the STE-GCN config, as phase 3 runs it
+CORA_CFG = dict(lr=1e-3, lr_adj=0.8, momentum_adj=0.9, weight_decay=5e-5,
+                weight_decay_adj=5e-4, grad_norm=True,
+                subset_of_weights="all")
+
+
+def dense_model(torch, cls_name, opts, n_in, hidden, X, adj, dev, dtype,
+                dropout_p=0.5):
+    from laplace_gnn_torch import models
+    return getattr(models, cls_name)(
+        n_in, hidden, N_CLASS, 2, X, adj, dropout_p=dropout_p, device=dev,
+        dtype=dtype, generator=torch.Generator().manual_seed(0), **opts)
+
+
+def step_ms(torch, fn, reps: int = 5):
+    """Median ms of ``reps`` calls by CUDA events, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return sorted(ms)[reps // 2], ms
+
+
+def phase_dense_models(torch, np, card):
+    """The other dense models under marglik_optimization at Cora's width
+    (the phase-3 synthetic graph, 4 epochs, 1 burn-in epoch, one round of 2
+    hypersteps), each with its wall time, peak memory and core_spmm
+    launches (count set to 0 just before the run and read just after),
+    then one train step and one hyperstep timed (median of 5, CUDA
+    events)."""
+    from laplace_gnn_torch.ops.fused_spmm import core
+    from laplace_gnn_torch.training.marglik_gnn import (
+        TrainingPrograms, marglik_optimization)
+    rng = np.random.default_rng(0)
+    X, adj, y = make_graph(np, rng)
+    perm = rng.permutation(N_NODES)
+    tr, va = perm[:N_TRAIN], perm[N_TRAIN:N_TRAIN + N_VAL]
+    idx = torch.as_tensor(tr, device="cuda")
+    yy = torch.as_tensor(y[tr], device="cuda")
+    rows = {}
+    for label, cls_name, opts, model_type, structure in DENSE_MODELS:
+        model = dense_model(torch, cls_name, opts, N_FEAT, HIDDEN, X, adj,
+                            "cuda", torch.float32)
+        params = model.params()
+        hypersteps = [0]
+        hyperstep = TrainingPrograms.hyperstep
+
+        def counted(self, *args, **kwargs):
+            hypersteps[0] += 1
+            return hyperstep(self, *args, **kwargs)
+
+        def run():
+            with mock.patch.object(TrainingPrograms, "hyperstep", counted):
+                return marglik_optimization(
+                    model, params, tr, y[tr], va, y[va], y=y, n_epochs=4,
+                    n_hypersteps=2, n_epochs_burnin=1, marglik_frequency=2,
+                    hessian_structure=structure, model_type=model_type,
+                    verbose=False, device="cuda", **CORA_CFG)
+
+        core.launches = 0
+        (_, final, losses, val_losses, nms), run_s, gb = timed(torch, run)
+        launches = core.launches
+        if not all(math.isfinite(v) for v in losses + val_losses + nms) or \
+                not all(bool(torch.isfinite(v).all()) for v in final.values()):
+            raise AssertionError(f"{label}: non-finite run {losses} {nms}")
+        moved = {k for k in final if not torch.equal(final[k], params[k])}
+        want_hyper = 0 if model_type in ("gcn", "graphsage") else 2
+        if hypersteps[0] != want_hyper:
+            raise AssertionError(f"{label}: {hypersteps[0]} hypersteps ran, "
+                                 f"expected {want_hyper}")
+        if model_type == "lorastegcn" and (
+                moved & {"adj", "adj_lora_A", "adj_lora_B"}
+                != {"adj_lora_A", "adj_lora_B"}):
+            raise AssertionError(f"{label}: adjacency parameters moved: "
+                                 f"{sorted(moved)}")
+        if (opts.get("fused") and launches == 0) or (
+                not opts.get("fused") and launches != 0):
+            raise AssertionError(f"{label}: {launches} core_spmm launches")
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in
+             final.items()}
+        progs = TrainingPrograms(model, p, N=N_TRAIN, prior_precision=1.0,
+                                 hessian_structure=structure,
+                                 model_type=model_type, **CORA_CFG)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        core.launches = 0
+        train_ms, _ = step_ms(torch, lambda: progs.train_step(idx, yy, gen))
+        train_launches = core.launches / 6
+        core.launches = 0
+        hyper_ms, _ = step_ms(torch, lambda: progs.hyperstep(idx, yy))
+        hyper_launches = core.launches / 6
+        rows[label] = {"run_s": run_s, "peak_gb": gb,
+                       "core_spmm_launches": launches,
+                       "hypersteps_run": hypersteps[0],
+                       "train_step_ms": train_ms,
+                       "train_step_core_spmm": train_launches,
+                       "hyperstep_ms": hyper_ms,
+                       "hyperstep_core_spmm": hyper_launches,
+                       "structure": structure, "moved": sorted(moved),
+                       "neg_margliks": nms}
+        print(f"dense model [{label}] ({structure}): 4 epochs, "
+              f"{hypersteps[0]} hypersteps in {run_s:.3f} s (host clock), "
+              f"peak {gb:.3f} GB, {launches} core_spmm launches; train step "
+              f"{train_ms:.3f} ms ({train_launches:g} launches), hyperstep "
+              f"{hyper_ms:.3f} ms ({hyper_launches:g}) (medians of 5, CUDA "
+              f"events); -log marglik {nms[-1]:.4f}  [{card}]", flush=True)
+        del model, params, final, progs, p
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dense_small(torch, np):
+    """Each DENSE_MODELS entry on a small graph, float32 on the card
+    against the float64 CPU path (which the CPU tests hold to the JAX
+    package): a train-mode CE loss and its weight gradients (dropout 0; the
+    neighbour sample's uniforms drawn in float32 on the CPU for both) and
+    the -log marglik of the entry's structure. Held at 1e-2 relative: the
+    fused kernel rounds its operands to bf16."""
+    from laplace_gnn_torch.ops import adjacency
+    from laplace_gnn_torch.training.marglik_gnn import (_ce_mean,
+                                                        make_neg_marglik_fn)
+    rng = np.random.default_rng(12)
+    n, f = 96, 24
+    X = rng.standard_normal((n, f))
+    a = (rng.random((n, n)) < 0.08).astype(float)
+    adj = np.minimum(a + a.T, 1.0)
+    np.fill_diagonal(adj, 0.0)
+    y = rng.integers(0, N_CLASS, n)
+
+    def uniforms(m, generator, dtype, device):
+        g = torch.Generator().manual_seed(0)
+        return torch.rand((m, m), generator=g).to(device, dtype)
+
+    out = {}
+    for label, cls_name, opts, _, structure in DENSE_MODELS:
+        vals = {}
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+            m = dense_model(torch, cls_name, opts, f, 16, X, adj, dev, dt,
+                            dropout_p=0.0)
+            p = {k: v.detach().requires_grad_(True)
+                 for k, v in m.params().items()}
+            idx = torch.arange(40, device=dev)
+            yy = torch.as_tensor(y[:40], device=dev)
+            with mock.patch.object(adjacency, "_neigh_uniforms", uniforms):
+                loss = _ce_mean(m.apply(p, idx, train=True,
+                                        generator=torch.Generator(dev)), yy)
+            names = [k for k in p if "adj" not in k]
+            grads = torch.autograd.grad(loss, [p[k] for k in names])
+            fn = make_neg_marglik_fn(m, "classification", structure, "all",
+                                     N=40)
+            nm = fn({k: v.detach() for k, v in p.items()}, idx, yy)
+            vals[dev] = (float(loss.detach()), torch.cat(
+                [g.reshape(-1) for g in grads]).double().cpu(),
+                float(nm.detach()))
+        (lc, gc, nc), (lp, gp, npp) = vals["cuda"], vals["cpu"]
+        errs = (abs(lc - lp) / abs(lp), float((gc - gp).norm() / gp.norm()),
+                abs(nc - npp) / abs(npp))
+        if not all(math.isfinite(v) for v in (lc, nc)) or max(errs) > 1e-2:
+            raise AssertionError(f"small-graph [{label}]: loss {lc} vs {lp}, "
+                                 f"grad rel {errs[1]}, -log marglik {nc} vs "
+                                 f"{npp}")
+        out[label] = {"loss_rel": errs[0], "grad_rel": errs[1],
+                      "neg_marglik": {"cuda": nc, "cpu": npp},
+                      "neg_marglik_rel": errs[2]}
+        print(f"small-graph [{label}]: train-mode loss rel {errs[0]:.2e}, "
+              f"weight gradients rel {errs[1]:.2e}, -log marglik ({structure})"
+              f" card {nc:.6f} vs CPU f64 {npp:.6f} (rel {errs[2]:.2e}; all "
+              f"held at 1e-2)", flush=True)
+    return out
+
+
+FULL_HIDDEN = 16         # the experiment grid's smallest width
+
+
+def phase_laplace_flavors(torch, np, state, kernels, card):
+    """DiagLaplace on the phase-3 STE-GCN (fused kernel path, hidden 64)
+    and FullLaplace on an STE-GCN of hidden 16 over the same graph: the
+    fit, the log marglik, marglik tuning of the prior precision (scalar
+    and layerwise), a grid search on the 500 validation nodes, the probit
+    predictive on 1000 nodes, 100 GLM predictive samples and a state_dict
+    round trip, each part with its time, peak memory and launches."""
+    from laplace_gnn_torch.laplace.dispatch import Laplace
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.training.marglik_gnn import fit_laplace
+    from laplace_gnn_torch.utils.data import ArrayLoader
+    model, params, y, perm = state
+    tr, va = perm[:N_TRAIN], perm[N_TRAIN:N_TRAIN + N_VAL]
+    te = perm[N_TRAIN + N_VAL:N_TRAIN + N_VAL + N_TEST]
+    idx = torch.as_tensor(te, device="cuda")
+    val = ArrayLoader(va, y[va], device="cuda")
+    chunks = math.ceil(N_TEST / JAC_CHUNK)
+    val_chunks = math.ceil(N_VAL / JAC_CHUNK)
+    bk = {"backend_kwargs": {"jac_chunk_size": JAC_CHUNK}}
+    small = STEGCN(N_FEAT, FULL_HIDDEN, N_CLASS, 2, model.X, model.init_adj,
+                   dropout_p=0.5, fused=True, symmetric=True, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    small_params = {**small.params(), "adj": params["adj"]}
+    out = {}
+    for structure, m, p, steps in (("diag", model, params, 100),
+                                   ("full", small, small_params, 5)):
+        part, parts = run_parts(torch, kernels, card,
+                                f"{structure.capitalize()}Laplace")
+        zero = {"core_spmm": 0, "matmul": 0}
+        la = part("fit_laplace", lambda: fit_laplace(
+            m, p, tr, y[tr], hessian_structure=structure, **bk),
+            {"core_spmm": None, "matmul": 0})
+        lml = float(part("log_marglik", la.log_marginal_likelihood, zero))
+        tuned = {}
+        for ps in ("scalar", "layerwise"):
+            part(f"marglik_tuning_{ps}_{steps}", lambda: (
+                la.optimize_prior_precision(method="marglik", n_steps=steps,
+                                            prior_structure=ps)), zero)
+            tuned[ps] = la.prior_precision.tolist()
+        part("gridsearch_20", lambda: la.optimize_prior_precision(
+            method="gridsearch", val_loader=val, grid_size=20),
+            {"core_spmm": 20 * (2 + 2 * val_chunks), "matmul": 0})
+        tuned["gridsearch"] = la.prior_precision.tolist()
+        probs = part(f"probit_{N_TEST}", lambda: la(idx,
+                                                    link_approx="probit"),
+                     {"core_spmm": 2 + 2 * chunks, "matmul": 0})
+        _check_probs(np, probs, N_TEST)
+        samples = part("predictive_samples_glm_100", lambda: (
+            la.predictive_samples(idx, n_samples=100)),
+            {"core_spmm": 2 + 2 * chunks, "matmul": 0})
+        if samples.shape != (100, N_TEST, N_CLASS) or \
+                not bool(torch.isfinite(samples).all()):
+            raise AssertionError(f"{structure} predictive samples: "
+                                 f"{tuple(samples.shape)}")
+        state_dict = part("state_dict", la.state_dict, zero)
+        fresh = Laplace(m, p, "classification", "all", structure, **bk)
+        part("load_state_dict", lambda: fresh.load_state_dict(state_dict),
+             zero)
+        a, b = la.log_marginal_likelihood(), fresh.log_marginal_likelihood()
+        if not torch.equal(a, b) or not math.isfinite(float(a)):
+            raise AssertionError(f"{structure} state_dict round trip: "
+                                 f"{float(a)} then {float(b)}")
+        steps_s = {ps: parts[f"marglik_tuning_{ps}_{steps}"]["s"] / steps
+                   for ps in ("scalar", "layerwise")}
+        print(f"{structure.capitalize()}Laplace: P = {la.n_params}, log "
+              f"marglik {lml:.4f} (after tuning {float(a):.4f}); tuned prior "
+              f"precision {tuned}; marglik tuning s a step {steps_s}; the "
+              f"Jacobians' core_spmm calls are the wide (N, {JAC_CHUNK} x "
+              f"{N_CLASS} x hidden) shapes  [{card}]", flush=True)
+        out[structure] = {"parts": parts, "log_marglik": lml,
+                          "n_params": la.n_params, "tuned": tuned,
+                          "tuning_s_per_step": steps_s,
+                          "log_marglik_tuned": float(a)}
+        del la, fresh, state_dict, samples, probs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_laplace_flavors_small(torch, np):
+    """FullLaplace and DiagLaplace on a small graph: the log marglik, the
+    prior precision after 10 steps of marglik tuning and the probit
+    probabilities, the kernel path in float32 on the card against the
+    float64 CPU path (which the CPU tests hold to the JAX package). Held
+    at 1e-2: the kernel rounds its operands to bf16."""
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.training.marglik_gnn import fit_laplace
+    rng = np.random.default_rng(13)
+    n, f = 96, 24
+    X = rng.standard_normal((n, f))
+    a = (rng.random((n, n)) < 0.08).astype(float)
+    adj = np.minimum(a + a.T, 1.0)
+    np.fill_diagonal(adj, 0.0)
+    y = rng.integers(0, N_CLASS, n)
+    out = {}
+    for structure in ("full", "diag"):
+        vals = {}
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+            m = STEGCN(f, 16, N_CLASS, 2, X, adj, dropout_p=0.0, fused=True,
+                       symmetric=True, device=dev, dtype=dt,
+                       generator=torch.Generator().manual_seed(0))
+            la = fit_laplace(m, m.params(), np.arange(40), y[:40],
+                             hessian_structure=structure)
+            lml = float(la.log_marginal_likelihood())
+            la.optimize_prior_precision(method="marglik", n_steps=10,
+                                        prior_structure="layerwise")
+            vals[dev] = (lml, la.prior_precision.double().cpu(),
+                         la(torch.arange(40, n, device=dev),
+                            link_approx="probit").detach().double().cpu())
+        (lc, pc, qc), (lp, pp, qp) = vals["cuda"], vals["cpu"]
+        errs = (abs(lc - lp) / abs(lp), float(((pc - pp) / pp).abs().max()),
+                float((qc - qp).abs().max()))
+        if not math.isfinite(lc) or max(errs) > 1e-2:
+            raise AssertionError(f"small {structure} Laplace: {vals}")
+        out[structure] = {"log_marglik": {"cuda": lc, "cpu": lp},
+                          "errors": errs}
+        print(f"small-graph {structure} Laplace: log marglik card {lc:.6f} "
+              f"vs CPU f64 {lp:.6f} (rel {errs[0]:.2e}); tuned prior "
+              f"precision max rel {errs[1]:.2e}; probit max abs diff "
+              f"{errs[2]:.2e} (held at 1e-2)", flush=True)
+    return out
+
+
 def build_kernels(cuda_build, out_dir, names=None):
     """Phase 1: build the named sources (default all), one nvcc each, all at
     once; each ptxas report goes to ``build_<source>.log``."""
@@ -1766,32 +2136,55 @@ def main(argv=None) -> int:
         print(card, flush=True)
         print(json.dumps({"partial": ["flash"]}), flush=True)
         return 0
-    build_kernels(cuda_build, out_dir)
+    seconds = {}
 
-    rows, max_err = phase_kernel(torch, fs, peaks)
-    core_checks = phase_core_checks(torch, fs)
-    small = phase_small_reference(torch, np)
-    run, stegcn_state = phase_trainer(torch, np, card)
+    def phase(number, fn, *args):
+        """Run one part of a phase and print its seconds (host clock)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        key = f"{number} {fn.__name__}"
+        seconds[key] = time.perf_counter() - t0
+        print(f"phase {key}: {seconds[key]:.3f} s", flush=True)
+        return out
 
-    flash_rows, flash_err = phase_flash_kernels(torch, np, fa, peaks[0])
-    flash_checks = phase_flash_checks(torch, fa)
-    gat_step = phase_gat_step(torch, card)
-    gat_run, gat_state = phase_gat_trainer(torch, np, fa, card)
-    gat_small = phase_gat_small_reference(torch, np)
+    phase("1", build_kernels, cuda_build, out_dir)
 
-    mm_rows, mm_checks = phase_matmul(torch, mm, peaks)
+    rows, max_err = phase("2", phase_kernel, torch, fs, peaks)
+    core_checks = phase("2", phase_core_checks, torch, fs)
+    small = phase("3", phase_small_reference, torch, np)
+    run, stegcn_state = phase("3", phase_trainer, torch, np, card)
+
+    flash_rows, flash_err = phase("4", phase_flash_kernels, torch, np, fa,
+                                  peaks[0])
+    flash_checks = phase("4", phase_flash_checks, torch, fa)
+    gat_step = phase("5", phase_gat_step, torch, card)
+    gat_run, gat_state = phase("6", phase_gat_trainer, torch, np, fa, card)
+    gat_small = phase("6", phase_gat_small_reference, torch, np)
+
+    mm_rows, mm_checks = phase("7", phase_matmul, torch, mm, peaks)
     counted = (fs.core, fa.flash_fwd, fa.flash_bwd, mm.matmul)
-    laplace = phase_laplace_stegcn(torch, np, stegcn_state, counted, card)
-    laplace_small = phase_laplace_small_reference(torch, np)
-    gat_laplace = phase_laplace_gat(torch, np, gat_state, counted, card)
+    laplace = phase("8", phase_laplace_stegcn, torch, np, stegcn_state,
+                    counted, card)
+    laplace_small = phase("8", phase_laplace_small_reference, torch, np)
+    gat_laplace = phase("9", phase_laplace_gat, torch, np, gat_state,
+                        counted, card)
     torch.cuda.empty_cache()
-    experiment = phase_experiment(torch, np, counted, card)
+    experiment = phase("10", phase_experiment, torch, np, counted, card)
 
-    curvature = phase_curvature(torch, np, stegcn_state, card)
-    del stegcn_state
-    curvature_small = phase_curvature_small(torch, np)
-    gat_probes = phase_gat_probes(torch, gat_run, gat_state, counted, card)
+    curvature = phase("11", phase_curvature, torch, np, stegcn_state, card)
+    curvature_small = phase("11", phase_curvature_small, torch, np)
+    gat_probes = phase("11", phase_gat_probes, torch, gat_run, gat_state,
+                       counted, card)
     del gat_state
+    torch.cuda.empty_cache()
+
+    dense = phase("12", phase_dense_models, torch, np, card)
+    dense_small = phase("12", phase_dense_small, torch, np)
+    flavors = phase("13", phase_laplace_flavors, torch, np, stegcn_state,
+                    counted, card)
+    flavors_small = phase("13", phase_laplace_flavors_small, torch, np)
+    del stegcn_state
     torch.cuda.empty_cache()
 
     main_row = rows[0]                  # d = 64, forward: the widest call
@@ -1845,6 +2238,10 @@ def main(argv=None) -> int:
                    "curvature": curvature,
                    "curvature_small": curvature_small,
                    "gat_probes": gat_probes,
+                   "dense_models": dense, "dense_small": dense_small,
+                   "laplace_flavors": flavors,
+                   "laplace_flavors_small": flavors_small,
+                   "phase_seconds": seconds,
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -372,6 +372,12 @@ def compute_kfac_factors(model, params, X, y, likelihood: str,
 
     eps0 = _zero_perturbations(model, params, sites)
     out, pullback, acts = torch.func.vjp(f_of_eps, eps0, has_aux=True)
+    for name in site_names:
+        # JAX raises KeyError here: a residual Linear (res=True) is a
+        # listed site that its forward applies without a tap
+        if name not in acts:
+            raise ValueError(f"KFAC tap site {name!r} recorded no tap in "
+                             f"the forward; its layer runs untapped")
 
     def summed(cots):
         (gs,) = torch.func.vmap(pullback)(cots)

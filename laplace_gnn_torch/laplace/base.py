@@ -12,27 +12,35 @@ run ``self.model``, which keeps the kernels. The parameters are held
 detached. Random draws come from a ``torch.Generator`` (seeded with 0
 unless one is passed), where JAX splits a key.
 
-Waiting with ROADMAP Queue 1 item 14(a) (each raises ``NotImplementedError``):
-``optimize_prior_precision`` with ``_gridsearch`` / ``_validate``, and
-``state_dict`` / ``load_state_dict``.
+The prior precision is tuned by the marginal likelihood (Adam on its log,
+optax's ``adam`` step for step) or by a grid search on a validation
+loader; ``state_dict`` / ``load_state_dict`` carry a fitted posterior.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from collections.abc import MutableMapping
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..curvature.interface import CurvatureBackend, GGNBackend
+from ..ops.linalg import normal_samples
 from ..utils.data import dataset_size
 from ..utils.pytree import DEFAULT_EXCLUDE, merge_split, named_leaves
-from .enums import LinkApprox, Likelihood, PredType
+from .enums import (LinkApprox, Likelihood, PredType, PriorStructure,
+                    TuningMethod)
 from .predictive import glm_classification_predictive
 
-_WAITS = ("is not ported yet: it waits with optimize_prior_precision "
-          "(ROADMAP Queue 1 item 14(a))")
+
+def _map_tensors(fn, tree):
+    """``fn`` on a tensor, or on each tensor of nested lists."""
+    if isinstance(tree, (list, tuple)):
+        return [_map_tensors(fn, t) for t in tree]
+    return fn(tree)
 
 
 class BaseLaplace:
@@ -99,6 +107,7 @@ class BaseLaplace:
 
     @prior_precision.setter
     def prior_precision(self, prior_precision) -> None:
+        self._posterior_scale = None
         pp = torch.atleast_1d(self._scalar(prior_precision))
         if pp.dim() > 1:
             raise ValueError("Prior precision needs to be at most "
@@ -125,6 +134,7 @@ class BaseLaplace:
 
     @sigma_noise.setter
     def sigma_noise(self, sigma_noise) -> None:
+        self._posterior_scale = None
         sn = self._scalar(sigma_noise)
         if sn.dim() == 1:
             if sn.shape[0] > 1:
@@ -143,7 +153,10 @@ class BaseLaplace:
     @property
     def prior_precision_diag(self) -> torch.Tensor:
         """Scalar, per-layer or diagonal prior expanded to the diagonal."""
-        pp = self.prior_precision
+        return self._expand_prior_precision(self.prior_precision)
+
+    def _expand_prior_precision(self, pp: torch.Tensor) -> torch.Tensor:
+        pp = torch.atleast_1d(pp)
         if pp.shape[0] == 1:
             return pp[0] * torch.ones(self.n_params, dtype=pp.dtype,
                                       device=pp.device)
@@ -176,14 +189,92 @@ class BaseLaplace:
         return self(x, pred_type=pred_type, link_approx=link_approx,
                     n_samples=n_samples)
 
-    def optimize_prior_precision(self, *args, **kwargs) -> None:
-        raise NotImplementedError(f"optimize_prior_precision {_WAITS}")
+    # -- prior-precision tuning --------------------------------------------
+    def optimize_prior_precision(self,
+                                 pred_type: str = PredType.GLM.value,
+                                 method: str = TuningMethod.MARGLIK.value,
+                                 n_steps: int = 100,
+                                 lr: float = 1e-1,
+                                 init_prior_prec: float = 1.0,
+                                 prior_structure: str =
+                                 PriorStructure.SCALAR.value,
+                                 val_loader=None,
+                                 loss: Optional[Callable] = None,
+                                 log_prior_prec_min: float = -4.0,
+                                 log_prior_prec_max: float = 4.0,
+                                 grid_size: int = 100,
+                                 link_approx: str = LinkApprox.PROBIT.value,
+                                 n_samples: int = 100,
+                                 verbose: bool = False,
+                                 progress_bar: bool = False) -> None:
+        """``method="marglik"``: ``n_steps`` of Adam (``lr``) on the log
+        prior precision of ``prior_structure`` (scalar, layerwise or diag)
+        against the -log marglik. ``method="gridsearch"``: the prior
+        precision of ``logspace(min, max, grid_size)`` whose predictive
+        scores best on ``val_loader`` (NLL, or MSE for regression, unless
+        ``loss`` is given)."""
+        if method == TuningMethod.MARGLIK.value:
+            init = torch.atleast_1d(self._scalar(init_prior_prec))
+            if (init.shape[0] == 1
+                    and prior_structure != PriorStructure.SCALAR.value):
+                n = {PriorStructure.LAYERWISE.value: self.n_layers,
+                     PriorStructure.DIAG.value: self.n_params
+                     }[prior_structure]
+                init = torch.full((n,), float(init[0]), dtype=self._dtype,
+                                  device=self._device)
+            log_pp = torch.log(init).requires_grad_(True)
+            opt = torch.optim.Adam([log_pp], lr=lr)
+            for _ in range(n_steps):
+                with torch.enable_grad():
+                    neg = -self._pure_log_marglik(torch.exp(log_pp),
+                                                  self.sigma_noise)
+                    (log_pp.grad,) = torch.autograd.grad(neg, log_pp)
+                opt.step()
+            self.prior_precision = torch.exp(log_pp.detach())
+        elif method == TuningMethod.GRIDSEARCH.value:
+            if val_loader is None:
+                raise ValueError("gridsearch requires a validation set "
+                                 "DataLoader")
+            interval = torch.logspace(log_prior_prec_min, log_prior_prec_max,
+                                      grid_size, dtype=self._dtype,
+                                      device=self._device)
+            self.prior_precision = self._gridsearch(
+                loss, interval, val_loader, pred_type=pred_type,
+                link_approx=link_approx, n_samples=n_samples)
+        else:
+            raise ValueError("For now only marglik and gridsearch is "
+                             "implemented.")
+        if verbose:
+            print(f"Optimized prior precision is {self.prior_precision}.")
 
-    def _gridsearch(self, *args, **kwargs):
-        raise NotImplementedError(f"_gridsearch {_WAITS}")
+    def _pure_log_marglik(self, prior_precision, sigma_noise):
+        raise NotImplementedError
 
-    def _validate(self, *args, **kwargs):
-        raise NotImplementedError(f"_validate {_WAITS}")
+    def _gridsearch(self, loss, interval, val_loader, pred_type, link_approx,
+                    n_samples):
+        """The grid value with the least validation loss. A prior whose
+        posterior cannot be factorised (``torch.linalg.LinAlgError``) or
+        whose loss is not finite scores inf; any other error ends the
+        search (JAX's scores every exception inf)."""
+        from ..utils.metrics import mse_loss, nll_loss
+        if loss is None:
+            # _validate predicts with fitting=True, so reward modeling
+            # scores as classification
+            loss = (mse_loss if self.likelihood == Likelihood.REGRESSION.value
+                    else nll_loss)
+        results, prior_precs = [], []
+        for prior_prec in interval:
+            self.prior_precision = prior_prec
+            try:
+                result = self._validate(val_loader, loss, pred_type,
+                                        link_approx, n_samples)
+            except torch.linalg.LinAlgError:
+                result = math.inf
+            if not math.isfinite(result):
+                result = math.inf
+            results.append(result)
+            prior_precs.append(prior_prec)
+        return prior_precs[int(np.argmin(results))]
 
     def _unpack_batch(self, data):
         """(X, y) from a loader batch: a (X, y) tuple, or a mapping that is
@@ -192,6 +283,22 @@ class BaseLaplace:
             return data, data[self.dict_key_y]
         X, y = data
         return X, y
+
+    def _validate(self, val_loader, loss, pred_type, link_approx,
+                  n_samples) -> float:
+        """``loss`` of the predictive (``fitting=True``) over
+        ``val_loader``, on numpy arrays."""
+        outs, targets = [], []
+        for data in val_loader:
+            X, y = self._unpack_batch(data)
+            pred = self(X, pred_type=pred_type, link_approx=link_approx,
+                        n_samples=n_samples, fitting=True)
+            if isinstance(pred, tuple):
+                pred = pred[0]
+            outs.append(pred.detach().cpu().numpy())
+            targets.append(y.detach().cpu().numpy()
+                           if isinstance(y, torch.Tensor) else np.asarray(y))
+        return float(loss(np.concatenate(outs), np.concatenate(targets)))
 
 
 class ParametricLaplace(BaseLaplace):
@@ -270,6 +377,15 @@ class ParametricLaplace(BaseLaplace):
                 raise ValueError("Can only change sigma_noise for regression.")
             self.sigma_noise = sigma_noise
         return self.log_likelihood - 0.5 * (self.log_det_ratio + self.scatter)
+
+    def _pure_log_marglik(self, prior_precision, sigma_noise):
+        """The log marglik at ``prior_precision`` and ``sigma_noise``,
+        differentiable in both, evaluated on a shallow copy so that the
+        fitted object is left as it was."""
+        la = copy.copy(self)
+        la._prior_precision = torch.atleast_1d(prior_precision)
+        la._sigma_noise = torch.as_tensor(sigma_noise)
+        return la.log_likelihood - 0.5 * (la.log_det_ratio + la.scatter)
 
     # -- predictive ---------------------------------------------------------
     def functional_variance(self, Js: torch.Tensor) -> torch.Tensor:
@@ -356,10 +472,73 @@ class ParametricLaplace(BaseLaplace):
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         raise NotImplementedError
 
+    def predictive_samples(self, x, pred_type: str = PredType.GLM.value,
+                           n_samples: int = 100,
+                           diagonal_output: bool = False,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+        """(n_samples, B, C) samples of the posterior predictive on ``x``,
+        softmaxed for classification: of the linearized predictive
+        (``"glm"``), or the model at posterior weight samples (``"nn"``)."""
+        if pred_type not in (PredType.GLM.value, PredType.NN.value):
+            raise ValueError("Only glm and nn supported as prediction "
+                             "types.")
+        generator = generator if generator is not None else self.generator
+        if pred_type == PredType.GLM.value:
+            f_mu, f_var = self._glm_predictive_distribution(x)
+            if diagonal_output:
+                f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
+            fs = normal_samples(f_mu, f_var, n_samples, generator)
+            if self.likelihood == Likelihood.CLASSIFICATION.value:
+                fs = torch.softmax(fs, dim=-1)
+            return fs
+        return self._nn_predictive_samples(x, n_samples, generator=generator)
+
+    # -- serialization ------------------------------------------------------
     def state_dict(self) -> dict:
-        raise NotImplementedError(
-            "state_dict is not ported yet (ROADMAP Queue 1 item 14(a))")
+        """The fitted posterior: detached copies of its tensors (on their
+        device), the bookkeeping, and the class name."""
+        self._check_H_init()
+
+        def keep(t):
+            return t.detach().clone()
+
+        return {
+            "mean": keep(self.mean),
+            "H": _map_tensors(keep, self._H_for_state()),
+            "loss": float(self.loss),
+            "prior_mean": keep(self.prior_mean),
+            "prior_precision": keep(self.prior_precision),
+            "sigma_noise": keep(self.sigma_noise),
+            "n_data": self.n_data,
+            "n_outputs": self.n_outputs,
+            "likelihood": self.likelihood,
+            "temperature": self.temperature,
+            "cls_name": type(self).__name__,
+        }
+
+    def _H_for_state(self):
+        return self.H
 
     def load_state_dict(self, state_dict: dict) -> None:
-        raise NotImplementedError(
-            "load_state_dict is not ported yet (ROADMAP Queue 1 item 14(a))")
+        if state_dict["cls_name"] != type(self).__name__:
+            raise ValueError("Loading a wrong Laplace type. Make sure to use "
+                             f"{state_dict['cls_name']}.")
+        if state_dict["likelihood"] != self.likelihood:
+            raise ValueError("Loading Laplace with a wrong likelihood.")
+
+        def to_here(t):
+            return torch.as_tensor(t, dtype=self._dtype, device=self._device)
+
+        self.mean = to_here(state_dict["mean"])
+        self._load_H(_map_tensors(to_here, state_dict["H"]))
+        self.loss = self._scalar(state_dict["loss"])
+        self.prior_mean = state_dict["prior_mean"]
+        self.prior_precision = state_dict["prior_precision"]
+        self.sigma_noise = state_dict["sigma_noise"]
+        self.n_data = state_dict["n_data"]
+        self.n_outputs = state_dict["n_outputs"]
+        self.temperature = state_dict["temperature"]
+
+    def _load_H(self, H) -> None:
+        self.H = H

@@ -1,21 +1,22 @@
 """``Laplace()``: maps (subset_of_weights, hessian_structure) to a flavour
 class (counterpart of ``laplace_gnn_tpu/laplace/dispatch.py``).
 
-Ported: ``("all", "kron")``. Every other flavour of the JAX package raises
-``NotImplementedError`` naming its ROADMAP item."""
+Ported: ``("all", "kron" | "full" | "diag")``. Every other flavour of the
+JAX package raises ``NotImplementedError`` naming its ROADMAP item."""
 
 from __future__ import annotations
 
-from .flavors import KronLaplace
+from .flavors import DiagLaplace, FullLaplace, KronLaplace
 
-PORTED = {("all", "kron"): KronLaplace}
+PORTED = {cls._key: cls for cls in (KronLaplace, FullLaplace, DiagLaplace)}
 
-# the JAX package's other flavours, each waiting with ROADMAP Queue 1
-# item 14(a)
-WAITING = {("all", "full"), ("all", "diag"), ("all", "lowrank"),
-           ("all", "gp"), ("last_layer", "full"), ("last_layer", "kron"),
-           ("last_layer", "diag"), ("last_layer", "gp"),
-           ("subnetwork", "full"), ("subnetwork", "diag")}
+# the JAX package's other flavours, by the ROADMAP Queue 1 item they wait
+# with: LowRank needs the curvature engine's Lanczos and GGN operator
+WAITING = {("all", "lowrank"): "14(c)",
+           **{key: "14(a)" for key in (
+               ("all", "gp"), ("last_layer", "full"), ("last_layer", "kron"),
+               ("last_layer", "diag"), ("last_layer", "gp"),
+               ("subnetwork", "full"), ("subnetwork", "diag"))}}
 
 
 def Laplace(model, params, likelihood: str,
@@ -34,5 +35,5 @@ def Laplace(model, params, likelihood: str,
     if key in WAITING:
         raise NotImplementedError(
             f"the Laplace flavour {key} is not ported yet (ROADMAP Queue 1 "
-            f"item 14(a)); ported: {sorted(PORTED)}")
+            f"item {WAITING[key]}); ported: {sorted(PORTED)}")
     raise ValueError(f"No Laplace flavor for {key}.")

@@ -1,6 +1,11 @@
 """Parametric Laplace flavours (counterpart of
-``laplace_gnn_tpu/laplace/flavors.py``; ``KronLaplace`` so far — the full,
-diagonal and low-rank flavours wait with ROADMAP Queue 1 item 14(a))."""
+``laplace_gnn_tpu/laplace/flavors.py``): full, Kronecker-factored and
+diagonal posterior precision. ``LowRankLaplace`` waits with the curvature
+engine (ROADMAP Queue 1 item 14(c)).
+
+Each flavour's ``sample`` draws its standard normals through
+``ops/linalg.py::_standard_normals``, which a test replaces to feed both
+packages the same noise."""
 
 from __future__ import annotations
 
@@ -8,9 +13,78 @@ from typing import Optional
 
 import torch
 
+from ..ops import linalg
 from ..utils.data import dataset_size
-from .base import _WAITS, ParametricLaplace
+from .base import ParametricLaplace
 from .kron import Kron, KronDecomposed
+
+
+class FullLaplace(ParametricLaplace):
+    """Dense P x P posterior precision. The posterior scale (a lower
+    Cholesky-type factor of the covariance) is formed on first use and
+    kept until the fit or a prior changes."""
+
+    _key = ("all", "full")
+
+    def __init__(self, model, params, likelihood, **kwargs):
+        self._posterior_scale = None
+        super().__init__(model, params, likelihood, **kwargs)
+
+    def _init_H(self) -> None:
+        self.H = torch.zeros((self.n_params, self.n_params),
+                             dtype=self._dtype, device=self._device)
+
+    def _curv_closure(self, X, y, N: int, batch_idx: int = 0):
+        loss, H = self.backend.full(X, y, N=N)
+        return loss.detach(), H.detach()
+
+    def fit(self, train_loader, override: bool = True) -> None:
+        self._posterior_scale = None
+        super().fit(train_loader, override=override)
+
+    @property
+    def posterior_precision(self) -> torch.Tensor:
+        self._check_H_init()
+        P = self._H_factor * self.H
+        P.diagonal().add_(self.prior_precision_diag)   # no second P x P
+        return P
+
+    @property
+    def posterior_scale(self) -> torch.Tensor:
+        if self._posterior_scale is None:
+            self._posterior_scale = linalg.invsqrt_precision(
+                self.posterior_precision)
+        return self._posterior_scale
+
+    @property
+    def posterior_covariance(self) -> torch.Tensor:
+        scale = self.posterior_scale
+        return scale @ scale.T
+
+    @property
+    def log_det_posterior_precision(self) -> torch.Tensor:
+        return torch.linalg.slogdet(self.posterior_precision)[1]
+
+    def square_norm(self, value):
+        delta = value - self.mean
+        return delta @ self.posterior_precision @ delta
+
+    def functional_variance(self, Js):
+        return torch.einsum("ncp,pq,nkq->nck", Js, self.posterior_covariance,
+                            Js)
+
+    def functional_covariance(self, Js):
+        n, c, p = Js.shape
+        Js = Js.reshape(n * c, p)
+        return torch.einsum("np,pq,mq->nm", Js, self.posterior_covariance,
+                            Js)
+
+    def sample(self, n_samples: int = 100,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        generator = generator if generator is not None else self.generator
+        eps = linalg._standard_normals((n_samples, self.n_params), generator,
+                                       self.mean.dtype, self.mean.device)
+        return self.mean[None, :] + eps @ self.posterior_scale
 
 
 class KronLaplace(ParametricLaplace):
@@ -99,8 +173,8 @@ class KronLaplace(ParametricLaplace):
     def sample(self, n_samples: int = 100,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         generator = generator if generator is not None else self.generator
-        eps = torch.randn((n_samples, self.n_params), generator=generator,
-                          dtype=self.mean.dtype, device=self.mean.device)
+        eps = linalg._standard_normals((n_samples, self.n_params), generator,
+                                       self.mean.dtype, self.mean.device)
         samples = self.posterior_precision.bmm(eps, exponent=-0.5)
         return self.mean[None, :] + samples.reshape(n_samples, self.n_params)
 
@@ -111,5 +185,59 @@ class KronLaplace(ParametricLaplace):
             raise ValueError("Prior precision for Kron either scalar or "
                              "per-layer.")
 
-    def _pure_log_marglik(self, prior_precision, sigma_noise):
-        raise NotImplementedError(f"_pure_log_marglik {_WAITS}")
+    def _H_for_state(self):
+        return self.H_facs.kfacs
+
+    def _load_H(self, H) -> None:
+        self.H_facs = Kron(H)
+        self.H = self.H_facs.decompose(damping=self.damping)
+
+
+class DiagLaplace(ParametricLaplace):
+    """Diagonal posterior precision."""
+
+    _key = ("all", "diag")
+
+    def _init_H(self) -> None:
+        self.H = torch.zeros(self.n_params, dtype=self._dtype,
+                             device=self._device)
+
+    def _curv_closure(self, X, y, N: int, batch_idx: int = 0):
+        loss, H = self.backend.diag(X, y, N=N)
+        return loss.detach(), H.detach()
+
+    @property
+    def posterior_precision(self) -> torch.Tensor:
+        self._check_H_init()
+        return self._H_factor * self.H + self.prior_precision_diag
+
+    @property
+    def posterior_scale(self) -> torch.Tensor:
+        return 1.0 / torch.sqrt(self.posterior_precision)
+
+    @property
+    def posterior_variance(self) -> torch.Tensor:
+        return 1.0 / self.posterior_precision
+
+    @property
+    def log_det_posterior_precision(self) -> torch.Tensor:
+        return torch.sum(torch.log(self.posterior_precision))
+
+    def square_norm(self, value):
+        delta = value - self.mean
+        return delta @ (delta * self.posterior_precision)
+
+    def functional_variance(self, Js):
+        return torch.einsum("ncp,p,nkp->nck", Js, self.posterior_variance, Js)
+
+    def functional_covariance(self, Js):
+        n, c, p = Js.shape
+        Js = Js.reshape(n * c, p)
+        return torch.einsum("np,p,mp->nm", Js, self.posterior_variance, Js)
+
+    def sample(self, n_samples: int = 100,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        generator = generator if generator is not None else self.generator
+        eps = linalg._standard_normals((n_samples, self.n_params), generator,
+                                       self.mean.dtype, self.mean.device)
+        return self.mean[None, :] + eps * self.posterior_scale[None, :]

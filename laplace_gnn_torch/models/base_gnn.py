@@ -7,6 +7,11 @@ pytree names:
     adj                   (N, N) adjacency, excluded from the posterior
     convs.<i>.lin.weight  (out, in)
     convs.<i>.lin.bias    (out,)
+    res.<i>.weight/.bias  residual Linears of the hidden layers (res=True)
+    norms.<i>.weight/.bias  LayerNorm / BatchNorm of the hidden layers,
+                          excluded from the posterior
+
+and whatever a model adds (``adj_lora_A`` / ``adj_lora_B``, ``adj_W``).
 
 ``apply(params, x_indices)`` runs every layer on the full graph through
 ``torch.func.functional_call`` over a flat ``{name: tensor}`` dict and
@@ -24,8 +29,8 @@ from torch import nn
 from torch.func import functional_call
 
 from ..device import resolve_device
-from ..nn.module import (TapCollector, activation_resolver, dropout,
-                         make_norm)
+from ..nn.module import (Linear, TapCollector, activation_resolver,
+                         dropout, make_norm)
 from ..utils.pytree import named_leaves
 
 
@@ -65,9 +70,6 @@ class BaseGNN(nn.Module):
                  **kwargs):
         super().__init__()
         dev = resolve_device(device)
-        if res:
-            raise NotImplementedError(
-                "residual Linear layers are not ported yet (see ROADMAP.md)")
         vals = (init_adj.detach().cpu().numpy()
                 if isinstance(init_adj, torch.Tensor) else np.asarray(init_adj))
         if not np.all((vals == 0) | (vals == 1)):
@@ -86,11 +88,11 @@ class BaseGNN(nn.Module):
         self.dropout_p = dropout_p
         self.act = activation_resolver(act, **(act_kwargs or {}))
         self.norm = norm
+        self.use_res = res
         self.n_outputs = out_channels
-        self.norms = [make_norm(norm, hidden_channels, name=f"norms.{i}")
-                      for i in range(num_layers - 1)]
 
-        # (in, out) channels of each conv, kept so init() can draw anew
+        # (in, out) channels of each conv, kept so init() can draw anew;
+        # the hidden layers' residual Linears have the same widths
         widths = [hidden_channels] * (num_layers - 1)
         if out_channels is not None:
             widths.append(out_channels)
@@ -99,7 +101,9 @@ class BaseGNN(nn.Module):
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(0)
         self.adj = nn.Parameter(init.clone())
-        self.convs = self._draw_convs(gen).to(dev)
+        for attr, value in self._draw(gen).items():
+            setattr(self, attr, nn.Parameter(value.to(dev))
+                    if isinstance(value, torch.Tensor) else value.to(dev))
 
         # the first GCNConv consumes raw X, so its KFAC input covariance
         # X^T X / N is constant and the hyperstep caches its eigenvalues
@@ -111,15 +115,31 @@ class BaseGNN(nn.Module):
                   **kwargs):
         raise NotImplementedError
 
-    def forward_adj(self, taps: Optional[TapCollector] = None):
-        """Effective adjacency (or fused aggregation operator)."""
+    def forward_adj(self, taps: Optional[TapCollector] = None,
+                    generator: Optional[torch.Generator] = None):
+        """Effective adjacency (or fused aggregation operator).
+        ``generator`` is given only to a train-mode forward that draws."""
         raise NotImplementedError
 
-    def _draw_convs(self, generator: torch.Generator) -> nn.ModuleList:
-        return nn.ModuleList([
+    def _draw(self, generator: torch.Generator) -> dict:
+        """Every parameter but ``adj``, drawn anew from ``generator`` in
+        the constructor's order, by attribute: modules, or tensors that
+        become parameters. Models with parameters of their own extend
+        it."""
+        dtype = self._conv_kwargs["dtype"]
+        out = {"convs": nn.ModuleList([
             self.init_conv(i, o, name=f"convs.{k}", generator=generator,
                            **self._conv_kwargs)
-            for k, (i, o) in enumerate(self._conv_specs)])
+            for k, (i, o) in enumerate(self._conv_specs)])}
+        hidden = self._conv_specs[:self.num_layers - 1]
+        if self.use_res:
+            out["res"] = nn.ModuleList([
+                Linear(i, o, name=f"res.{k}", generator=generator,
+                       dtype=dtype) for k, (i, o) in enumerate(hidden)])
+        out["norms"] = nn.ModuleList([
+            make_norm(self.norm, self.hidden_channels, name=f"norms.{k}",
+                      dtype=dtype) for k in range(self.num_layers - 1)])
+        return out
 
     # --- params -----------------------------------------------------------
     def params(self) -> dict:
@@ -134,8 +154,13 @@ class BaseGNN(nn.Module):
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(0)
         dev = self.adj.device
-        fresh = {f"convs.{name}": p.detach().to(dev) for name, p in
-                 self._draw_convs(gen).named_parameters()}
+        fresh = {}
+        for attr, value in self._draw(gen).items():
+            if isinstance(value, torch.Tensor):
+                fresh[attr] = value.to(dev)
+            else:
+                fresh.update({f"{attr}.{name}": p.detach().to(dev)
+                              for name, p in value.named_parameters()})
         return dict(named_leaves({"adj": self.init_adj.clone(), **fresh}))
 
     def full_adj(self, params: dict) -> torch.Tensor:
@@ -169,11 +194,17 @@ class BaseGNN(nn.Module):
     def forward(self, x_indices=None, taps: Optional[TapCollector] = None,
                 generator: Optional[torch.Generator] = None,
                 train: bool = False) -> torch.Tensor:
-        adj = self.forward_adj(taps)
+        """The JAX order: conv, ``+ res(x)`` (untapped, as in JAX), norm,
+        act, dropout. A train-mode forward given a generator draws the
+        adjacency's sample (GraphSAGE) from it first, then the dropout
+        masks."""
+        adj = self.forward_adj(taps, generator if train else None)
         x = self.X.to(self.adj.dtype)
         for i in range(self.num_layers - 1):
-            x = self.norms[i](self.convs[i](adj, x, taps=taps))
-            x = self.act(x)
+            h = self.convs[i](adj, x, taps=taps)
+            if self.use_res:
+                h = self.res[i](x) + h
+            x = self.act(self.norms[i](h))
             x = dropout(x, self.dropout_p, train, generator)
         x = self.convs[-1](adj, x, taps=taps)
         return x if x_indices is None else x[x_indices]
@@ -189,11 +220,17 @@ class BaseGNN(nn.Module):
 
     # --- introspection for Laplace / KFAC ---------------------------------
     def tap_sites(self, params: Optional[dict] = None) -> list[dict]:
+        """Every conv's sites, then the residual Linears', as JAX lists
+        them. The residual Linears record no tap (JAX applies them
+        untapped too), so KFAC raises on a model with ``res=True``."""
         sites = []
         for i, conv in enumerate(self.convs):
             for s in conv.tap_sites():
                 sites.append({**s, "param_path": ("convs", i)
                               + s["param_path"]})
+        for i, r in enumerate(getattr(self, "res", ())):
+            sites.append({"name": r.name, "param_path": ("res", i),
+                          "has_bias": r.use_bias})
         return sites
 
     def last_layer_path(self, params: Optional[dict] = None) -> tuple:

@@ -1,5 +1,6 @@
 """Dense message-passing layers (counterpart of
-``laplace_gnn_tpu/models/layers.py``; GCNConv and GATConv)."""
+``laplace_gnn_tpu/models/layers.py``): GCNConv, GraphSAGEConv and
+GATConv."""
 
 from __future__ import annotations
 
@@ -31,6 +32,38 @@ class GCNConv(nn.Module):
     def forward(self, adj, x: torch.Tensor,
                 taps: Optional[TapCollector] = None) -> torch.Tensor:
         return aggregate(adj, self.lin(x, taps=taps))
+
+    def tap_sites(self) -> list[dict]:
+        return [{"name": self.name, "param_path": ("lin",),
+                 "has_bias": self.lin.use_bias}]
+
+
+class GraphSAGEConv(nn.Module):
+    """``lin([x, mean_agg(adj, x)])``: row-normalised mean aggregation, a
+    concat, then a ``Linear(2 * in, out)``, the layer's KFAC tap site."""
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True,
+                 name: str = "conv", generator=None, dtype=torch.float32):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.lin = Linear(2 * in_channels, out_channels, bias=bias, name=name,
+                          generator=generator, dtype=dtype)
+        self.name = name
+
+    @staticmethod
+    def mean_agg(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s mean over each row's neighbours; a row sum of 0 counts
+        as 1."""
+        row_sum = torch.sum(adj, dim=1, keepdim=True)
+        row_sum = torch.where(row_sum == 0, torch.ones_like(row_sum),
+                              row_sum)
+        return aggregate(adj / row_sum, x)
+
+    def forward(self, adj, x: torch.Tensor,
+                taps: Optional[TapCollector] = None) -> torch.Tensor:
+        h = torch.cat([x, self.mean_agg(adj, x)], dim=-1)
+        return self.lin(h, taps=taps)
 
     def tap_sites(self) -> list[dict]:
         return [{"name": self.name, "param_path": ("lin",),

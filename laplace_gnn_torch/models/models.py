@@ -1,20 +1,27 @@
-"""GCN, STE-GCN and GAT (counterpart of
-``laplace_gnn_tpu/models/models.py``; the other models of the zoo are not
-ported yet)."""
+"""The dense model zoo (counterpart of
+``laplace_gnn_tpu/models/models.py``): GCN, GraphSAGE, STE-GCN,
+STE-GraphSAGE, LoRA-STE-GCN, GAT and AttSTEGCN.
+
+Parameters whose names contain ``adj`` (the adjacency, LoRA's
+``adj_lora_*``, AttSTEGCN's ``adj_W``) are kept out of the Laplace
+posterior by that name, and out of the trainer's weight optimizer."""
 
 from __future__ import annotations
 
 from typing import Optional
 
-import torch
+import math
 
-from ..nn.module import TapCollector
+import torch
+from torch import nn
+
+from ..nn.module import Linear, TapCollector
 from ..ops.adjacency import (binarize_ste, fill_diagonal, fill_diagonal_any,
-                             normalize_adj, train_adj_mask)
+                             normalize_adj, sample_neigh_adj, train_adj_mask)
 from ..ops.fused_spmm import (StaticNormAdjOp, norm_aggregate,
                               ste_norm_aggregate)
 from .base_gnn import BaseGNN
-from .layers import GATConv, GCNConv
+from .layers import GATConv, GCNConv, GraphSAGEConv
 
 
 class FusedAdjOp:
@@ -47,7 +54,8 @@ class GCN(BaseGNN):
         self._static_op = (StaticNormAdjOp(self.init_adj)
                            if fused == "int8" else None)
 
-    def forward_adj(self, taps: Optional[TapCollector] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None,
+                    generator: Optional[torch.Generator] = None):
         if self.fused == "int8":
             return self._static_op
         adj = self.adj
@@ -57,6 +65,33 @@ class GCN(BaseGNN):
 
     def init_conv(self, in_channels, out_channels, name, **kwargs):
         return GCNConv(in_channels, out_channels, name=name, **kwargs)
+
+
+class GraphSAGE(BaseGNN):
+    """Mean-aggregation SAGE on the fixed graph without self-loops; in a
+    train-mode forward given a generator, each row keeps a sample of at
+    most ``num_sampled_nodes_per_hop`` neighbours."""
+
+    def __init__(self, in_channels, hidden_channels, out_channels, num_layers,
+                 X, init_adj, num_sampled_nodes_per_hop: Optional[int] = None,
+                 dropout_p=0.5, act="relu", act_kwargs=None,
+                 symmetric: bool = False, **kwargs):
+        init_adj = fill_diagonal_any(init_adj, 0.0)
+        super().__init__(in_channels, hidden_channels, out_channels,
+                         num_layers, X, init_adj, dropout_p, act, act_kwargs,
+                         symmetric=symmetric, **kwargs)
+        self.num_sampled_nodes_per_hop = num_sampled_nodes_per_hop
+
+    def forward_adj(self, taps: Optional[TapCollector] = None,
+                    generator: Optional[torch.Generator] = None):
+        adj = self.adj
+        if self.num_sampled_nodes_per_hop is None or generator is None:
+            return adj
+        return adj * sample_neigh_adj(generator, adj,
+                                      self.num_sampled_nodes_per_hop)
+
+    def init_conv(self, in_channels, out_channels, name, **kwargs):
+        return GraphSAGEConv(in_channels, out_channels, name=name, **kwargs)
 
 
 class STEGCN(BaseGNN):
@@ -89,7 +124,8 @@ class STEGCN(BaseGNN):
     def full_adj(self, params):
         return (params["adj"] > self.threshold).to(params["adj"].dtype)
 
-    def forward_adj(self, taps: Optional[TapCollector] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None,
+                    generator: Optional[torch.Generator] = None):
         adj = self.adj
         if self.fused:
             if ((taps is not None and taps.perturbed)
@@ -109,6 +145,87 @@ class STEGCN(BaseGNN):
             adj = (adj + adj.T) / 2
         adj = binarize_ste(adj, self.threshold, self.grad_adj_mask,
                            self.sign_grad)
+        return normalize_adj(fill_diagonal(adj, 1.0))
+
+    def init_conv(self, in_channels, out_channels, name, **kwargs):
+        return GCNConv(in_channels, out_channels, name=name, **kwargs)
+
+
+class STEGraphSAGE(BaseGNN):
+    """SAGE over the straight-through binarized learnable adjacency, which
+    it uses without normalization or self-loops, as the JAX package does.
+    It takes ``num_sampled_nodes_per_hop`` and, like JAX, never samples."""
+
+    def __init__(self, in_channels, hidden_channels, out_channels, num_layers,
+                 X, init_adj, num_sampled_nodes_per_hop: Optional[int] = None,
+                 dropout_p=0.5, act="relu", act_kwargs=None,
+                 threshold: float = 0.5, train_masked_update: bool = False,
+                 train_nodes=None, symmetric: bool = False,
+                 sign_grad: bool = False, **kwargs):
+        init_adj = fill_diagonal_any(init_adj, 0.0)
+        super().__init__(in_channels, hidden_channels, out_channels,
+                         num_layers, X, init_adj, dropout_p, act, act_kwargs,
+                         symmetric=symmetric, **kwargs)
+        self.threshold = threshold
+        self.sign_grad = sign_grad
+        self.num_sampled_nodes_per_hop = num_sampled_nodes_per_hop
+        self.grad_adj_mask = _hard_mask(self, train_masked_update,
+                                        train_nodes)
+
+    def full_adj(self, params):
+        return (params["adj"] > self.threshold).to(params["adj"].dtype)
+
+    def forward_adj(self, taps: Optional[TapCollector] = None,
+                    generator: Optional[torch.Generator] = None):
+        adj = self.adj
+        if self.symmetric:
+            adj = (adj + adj.T) / 2
+        return binarize_ste(adj, self.threshold, self.grad_adj_mask,
+                            self.sign_grad)
+
+    def init_conv(self, in_channels, out_channels, name, **kwargs):
+        return GraphSAGEConv(in_channels, out_channels, name=name, **kwargs)
+
+
+class LoRASTEGCN(BaseGNN):
+    """STE-GCN whose adjacency update is low-rank:
+    ``STE(adj + B @ A * lora_alpha / r)``. The trainer's hypersteps move
+    ``adj_lora_A`` (r, N) and ``adj_lora_B`` (N, r), not ``adj``."""
+
+    def __init__(self, in_channels, hidden_channels, out_channels, num_layers,
+                 X, init_adj, r: int, lora_alpha: float, dropout_p=0.5,
+                 act="relu", act_kwargs=None, threshold: float = 0.5,
+                 symmetric: bool = False, **kwargs):
+        # set before the base draws: _draw reads r
+        self.threshold = threshold
+        self.r = r
+        self.lora_alpha = lora_alpha
+        self.scaling = lora_alpha / r
+        super().__init__(in_channels, hidden_channels, out_channels,
+                         num_layers, X, init_adj, dropout_p, act, act_kwargs,
+                         symmetric=symmetric, **kwargs)
+
+    def _draw(self, generator: torch.Generator) -> dict:
+        out = super()._draw(generator)
+        n = self.init_adj.shape[0]
+        dtype = self._conv_kwargs["dtype"]
+        # kaiming_uniform(a=sqrt(5)) on (r, N): bound 1 / sqrt(N)
+        bound = 1.0 / math.sqrt(n)
+        u = torch.rand((self.r, n), generator=generator, dtype=torch.float64)
+        out["adj_lora_A"] = (u * 2 * bound - bound).to(dtype)
+        out["adj_lora_B"] = torch.randn((n, self.r), generator=generator,
+                                        dtype=torch.float64).to(dtype)
+        return out
+
+    def full_adj(self, params):
+        return (params["adj"] > self.threshold).to(params["adj"].dtype)
+
+    def forward_adj(self, taps: Optional[TapCollector] = None,
+                    generator: Optional[torch.Generator] = None):
+        adj = self.adj + (self.adj_lora_B @ self.adj_lora_A) * self.scaling
+        if self.symmetric:
+            adj = (adj + adj.T) / 2
+        adj = binarize_ste(adj, self.threshold)
         return normalize_adj(fill_diagonal(adj, 1.0))
 
     def init_conv(self, in_channels, out_channels, name, **kwargs):
@@ -136,7 +253,8 @@ class GAT(BaseGNN):
                          symmetric=symmetric, **kwargs)
         self.mask_dtype = _torch_dtype(mask_dtype)
 
-    def forward_adj(self, taps: Optional[TapCollector] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None,
+                    generator: Optional[torch.Generator] = None):
         if self.mask_dtype is not None:
             return (self.adj > 0).to(self.mask_dtype)
         return self.adj
@@ -155,6 +273,65 @@ class GAT(BaseGNN):
                        name=name, **kwargs)
 
 
+class AttSTEGCN(BaseGNN):
+    """GCN on an adjacency built by scaled dot-product attention over the
+    node features, clipped to [0, 1], then STE-binarized. The projection
+    ``adj_W`` (a bias-free ``Linear(in, d_k)``, untapped) is named so that
+    the ``adj`` filters keep it out of the posterior and out of both of
+    the trainer's optimizers, as in JAX: it is never trained."""
+
+    def __init__(self, in_channels, hidden_channels, out_channels, num_layers,
+                 X, init_adj, dropout_p=0.5, act="relu", act_kwargs=None,
+                 threshold: float = 0.5, train_masked_update: bool = False,
+                 train_nodes=None, symmetric: bool = False, d_k: int = 8,
+                 **kwargs):
+        self.d_k = d_k                   # set before the base draws adj_W
+        super().__init__(in_channels, hidden_channels, out_channels,
+                         num_layers, X, init_adj, dropout_p, act, act_kwargs,
+                         symmetric=symmetric, **kwargs)
+        self.threshold = threshold
+        self.scale = math.sqrt(d_k)
+        self.grad_adj_mask = _hard_mask(self, train_masked_update,
+                                        train_nodes)
+
+    def _draw(self, generator: torch.Generator) -> dict:
+        out = super()._draw(generator)
+        out["adj_W"] = Linear(self.in_channels, self.d_k, bias=False,
+                              name="adj_W", generator=generator,
+                              dtype=self._conv_kwargs["dtype"])
+        return out
+
+    def construct_adj(self) -> torch.Tensor:
+        src = self.adj_W(self.X.to(self.adj.dtype))
+        score = (src @ src.T) / self.scale
+        # hardtanh(0, 1) with JAX's clip gradient at ties (half a side)
+        return torch.minimum(torch.maximum(score, score.new_zeros(())),
+                             score.new_ones(()))
+
+    def forward_adj(self, taps: Optional[TapCollector] = None,
+                    generator: Optional[torch.Generator] = None):
+        adj = self.construct_adj()
+        if self.symmetric:
+            adj = (adj + adj.T) / 2
+        adj = binarize_ste(adj, self.threshold, self.grad_adj_mask)
+        return normalize_adj(fill_diagonal(adj, 1.0))
+
+    def init_conv(self, in_channels, out_channels, name, **kwargs):
+        return GCNConv(in_channels, out_channels, name=name, **kwargs)
+
+
+def _hard_mask(model: BaseGNN, train_masked_update: bool, train_nodes):
+    """The 0/1 STE gradient mask of ``train_masked_update`` (zero on the
+    train x train block), or None."""
+    if not train_masked_update:
+        return None
+    if train_nodes is None:
+        raise ValueError("'train_nodes' must be provided to use "
+                         "train_masked_update.")
+    return train_adj_mask(model.init_adj.shape[0], train_nodes,
+                          model.init_adj.device, model.init_adj.dtype)
+
+
 def _torch_dtype(dtype) -> Optional[torch.dtype]:
     """``None``, a ``torch.dtype`` or its name (``"int8"``)."""
     if dtype is None or isinstance(dtype, torch.dtype):
@@ -162,21 +339,12 @@ def _torch_dtype(dtype) -> Optional[torch.dtype]:
     return getattr(torch, str(dtype))
 
 
-class _Registry(dict):
-    """``MODEL_REGISTRY`` with the JAX package's keys: the ported models,
-    and the others, whose lookup raises naming their ROADMAP item."""
-
-    WAITING = ("lorastegcn", "graphsage", "stegraphsage", "attstegcn")
-
-    def __missing__(self, key):
-        if key in self.WAITING:
-            raise NotImplementedError(
-                f"model {key!r} is not ported yet (ROADMAP Queue 1 item 13); "
-                f"ported: {sorted(self)}")
-        raise KeyError(key)
-
-    def names(self) -> list:
-        return list(self) + list(self.WAITING)
-
-
-MODEL_REGISTRY = _Registry(gcn=GCN, stegcn=STEGCN, gat=GAT)
+MODEL_REGISTRY = {
+    "gcn": GCN,
+    "stegcn": STEGCN,
+    "lorastegcn": LoRASTEGCN,
+    "gat": GAT,
+    "graphsage": GraphSAGE,
+    "stegraphsage": STEGraphSAGE,
+    "attstegcn": AttSTEGCN,
+}

@@ -1,5 +1,7 @@
-from .module import (Identity, Linear, TapCollector, activation_resolver,
-                     dropout, get_subtree, make_norm, set_subtree)
+from .module import (BatchNorm, Identity, LayerNorm, Linear, TapCollector,
+                     activation_resolver, dropout, get_subtree, make_norm,
+                     set_subtree)
 
-__all__ = ["Identity", "Linear", "TapCollector", "activation_resolver",
-           "dropout", "get_subtree", "make_norm", "set_subtree"]
+__all__ = ["BatchNorm", "Identity", "LayerNorm", "Linear", "TapCollector",
+           "activation_resolver", "dropout", "get_subtree", "make_norm",
+           "set_subtree"]

@@ -115,12 +115,50 @@ class Identity(nn.Module):
         return x
 
 
-def make_norm(norm: Optional[str], dim: int, name: str = "norm"):
+class _Norm(nn.Module):
+    """Affine normalization over ``axis`` with the biased variance
+    (``jnp.var``'s ddof 0), weight 1 and bias 0 at init."""
+
+    axis: int
+
+    def __init__(self, dim: int, eps: float = 1e-5, name: str = "norm",
+                 dtype=torch.float32):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.name = name
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
+        mu = torch.mean(x, dim=self.axis, keepdim=True)
+        var = torch.var(x, dim=self.axis, keepdim=True, correction=0)
+        return (x - mu) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
+
+
+class LayerNorm(_Norm):
+    """Normalization over each row's features."""
+
+    axis = -1
+
+
+class BatchNorm(_Norm):
+    """Normalization over axis 0 with the batch statistics, and no running
+    buffers: full-graph training shows every forward the whole graph, so
+    the batch statistics are the only statistics there are."""
+
+    axis = 0
+
+
+def make_norm(norm: Optional[str], dim: int, name: str = "norm",
+              dtype=torch.float32) -> nn.Module:
+    if norm == "layer":
+        return LayerNorm(dim, name=name, dtype=dtype)
+    if norm == "batch":
+        return BatchNorm(dim, name=name, dtype=dtype)
     if norm in (None, "none"):
         return Identity()
-    if norm in ("layer", "batch"):
-        raise NotImplementedError(
-            f"{norm!r} normalization is not ported yet (see ROADMAP.md)")
     raise ValueError(f"Unknown normalization type: {norm}")
 
 

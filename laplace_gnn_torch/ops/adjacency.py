@@ -1,10 +1,12 @@
-"""Adjacency-matrix ops: normalization and the straight-through binarizer.
+"""Adjacency-matrix ops: normalization, the straight-through binarizer and
+GraphSAGE's neighbour sample.
 
 Counterpart of ``laplace_gnn_tpu/ops/adjacency.py``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -75,3 +77,28 @@ def binarize_ste(x: torch.Tensor, threshold: float,
                  sign_grad: bool = False) -> torch.Tensor:
     """``(x > threshold)`` with a straight-through gradient into ``x``."""
     return _BinarizeSTE.apply(x, threshold, mask, sign_grad)
+
+
+def _neigh_uniforms(n: int, generator: torch.Generator, dtype,
+                    device) -> torch.Tensor:
+    """The (n, n) iid uniforms of one neighbour sample."""
+    return torch.rand((n, n), generator=generator, dtype=dtype,
+                      device=device)
+
+
+def sample_neigh_adj(generator: torch.Generator, adj: torch.Tensor,
+                     k: Optional[int]) -> torch.Tensor:
+    """A 0/1 mask keeping at most ``k`` neighbours of each row.
+
+    Draws iid uniforms, sets non-edges to -inf and keeps what is at or
+    above each row's k-th largest value, masked to the edges: in
+    distribution, k neighbours without replacement. A row with fewer than
+    k edges has -inf as its k-th value and keeps all of them. ``k=None``
+    returns ``adj``."""
+    if k is None:
+        return adj
+    scores = _neigh_uniforms(adj.shape[0], generator, adj.dtype, adj.device)
+    edge = adj > 0
+    scores = torch.where(edge, scores, torch.full_like(scores, -math.inf))
+    kth = torch.topk(scores, k, dim=1).values[:, -1:]
+    return ((scores >= kth) & edge).to(adj.dtype)

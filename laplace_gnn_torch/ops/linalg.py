@@ -47,6 +47,14 @@ def batched_eigvalsh(mats) -> list:
     return out
 
 
+def _standard_normals(shape: tuple, generator: Optional[torch.Generator],
+                      dtype, device) -> torch.Tensor:
+    """Standard normal draws: :func:`normal_samples`' and the Laplace
+    flavours' ``sample``'s, in one place a test can replace."""
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=device)
+
+
 def normal_samples(mean: torch.Tensor, var: torch.Tensor, n_samples: int,
                    generator: Optional[torch.Generator] = None,
                    eps: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -58,8 +66,8 @@ def normal_samples(mean: torch.Tensor, var: torch.Tensor, n_samples: int,
     (n_samples, B, K)."""
     B, K = mean.shape
     if eps is None:
-        eps = torch.randn((K, n_samples), generator=generator,
-                          dtype=mean.dtype, device=mean.device)
+        eps = _standard_normals((K, n_samples), generator, mean.dtype,
+                                mean.device)
     if mean.shape == var.shape:                       # diagonal
         scaled = torch.sqrt(var)[..., None] * eps[None]
     elif var.shape == (B, K, K):                      # full covariance
@@ -67,6 +75,19 @@ def normal_samples(mean: torch.Tensor, var: torch.Tensor, n_samples: int,
     else:
         raise ValueError("Invalid input shapes.")
     return torch.permute(mean[..., None] + scaled, (2, 0, 1))
+
+
+def invsqrt_precision(M: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular ``S`` with ``S S^T = M^{-1}`` for a precision
+    matrix ``M``, as torch.distributions' ``_precision_to_scale_tril``
+    forms it: the Cholesky factor of the flipped matrix, then a triangular
+    solve. The flipped matrix is freed before the solve (at P = 23063 in
+    f32 each P x P matrix is 2.13 GB)."""
+    Lf = torch.linalg.cholesky(torch.flip(M, (-2, -1)))
+    L_inv = torch.flip(Lf, (-2, -1)).mT
+    del Lf
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    return torch.linalg.solve_triangular(L_inv, eye, upper=False)
 
 
 def batched_symeig(mats) -> list:

@@ -41,7 +41,7 @@ def argument_parser() -> argparse.ArgumentParser:
     """The JAX experiment's flags, all of them."""
     p = argparse.ArgumentParser()
     p.add_argument("--dataset", type=str)
-    p.add_argument("--model_type", type=str, choices=MODEL_REGISTRY.names())
+    p.add_argument("--model_type", type=str, choices=list(MODEL_REGISTRY))
     p.add_argument("--base_out_dir", type=str, default=BASE_OUT_DIR)
     p.add_argument("--subset_of_weights", type=str, default="all",
                    choices=["all", "last", "last_layer"])

@@ -1,13 +1,14 @@
 """Graph-structure-learning marglik training (the flagship workload).
 
 Counterpart of ``laplace_gnn_tpu/training/marglik_gnn.py``: Adam on the
-weights (everything but ``adj``), SGD(+momentum) on the adjacency, burn-in,
+weights (every name without ``adj``), SGD(+momentum) on the adjacency
+parameters of ``ADJ_PARAM_FILTERS``, burn-in,
 then every ``marglik_frequency`` epochs ``n_hypersteps`` updates of the
 adjacency on the negative log marginal likelihood of a freshly fit KFAC
 Laplace approximation, with marglik- and valloss-based early stopping.
 
 One hyperstep is :func:`make_neg_marglik_fn`'s function and its gradient
-w.r.t. ``params["adj"]``: KFAC factors (curvature/kfac.py), eigenvalue
+w.r.t. the adjacency parameters: KFAC factors (curvature/kfac.py), eigenvalue
 log-determinants, marglik, then ``torch.autograd.grad``.
 """
 
@@ -36,6 +37,11 @@ from ..utils.pytree import named_leaves
 PATIENCE = 20
 
 NO_ADJ_UPDATE_MODELS = ("gcn", "gat", "graphsage")
+ADJ_PARAM_FILTERS = {
+    # which params the adjacency optimizer updates, per model type
+    "lorastegcn": lambda p: p.startswith("adj_lora"),
+    "default": lambda p: p == "adj",
+}
 
 
 def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
@@ -194,13 +200,15 @@ class TrainingPrograms:
     ``add_decayed_weights(wd)`` before ``adam`` is Adam with the L2 term in
     the gradient (``torch.optim.Adam(weight_decay=wd)``), and
     ``sgd(lr, momentum)`` is SGD with ``dampening=0``. Each touches only its
-    own parameters: the weights (every name without ``adj``) and
-    ``adj``."""
+    own parameters: the weights (every name without ``adj``; AttSTEGCN's
+    ``adj_W`` is in neither set, so it is never trained, as in JAX) and
+    the ones ``ADJ_PARAM_FILTERS`` selects for ``model_type`` (``adj``, or
+    LoRA's ``adj_lora_*``)."""
 
     def __init__(self, model, params: dict, *, lr, weight_decay, lr_adj,
                  weight_decay_adj, momentum_adj, grad_norm,
                  hessian_structure, subset_of_weights, prior_precision, N,
-                 fisher_type="type-2", **curvature):
+                 model_type="stegcn", fisher_type="type-2", **curvature):
         self.model = model
         self.params = params
         self.grad_norm = grad_norm
@@ -208,8 +216,11 @@ class TrainingPrograms:
         self.weight_opt = torch.optim.Adam(
             [params[k] for k in self.weight_names], lr=lr,
             weight_decay=weight_decay)
+        adj_filter = ADJ_PARAM_FILTERS.get(model_type,
+                                           ADJ_PARAM_FILTERS["default"])
+        self.adj_names = [k for k in params if adj_filter(k)]
         self.adj_opt = torch.optim.SGD(
-            [params["adj"]], lr=lr_adj,
+            [params[k] for k in self.adj_names], lr=lr_adj,
             momentum=momentum_adj or 0.0, dampening=0.0,
             weight_decay=weight_decay_adj)
         self.neg_marglik_fn = make_neg_marglik_fn(
@@ -235,19 +246,23 @@ class TrainingPrograms:
         return loss.detach(), _accuracy(f.detach(), yy)
 
     def hyperstep(self, idx, yy):
-        """One SGD step on the adjacency along d(-log marglik)/d adj;
-        returns the -log marglik before the step."""
+        """One SGD step on the adjacency parameters along their
+        d(-log marglik); returns the -log marglik before the step.
+        ``grad_norm`` rescales the gradient of ``adj`` alone, as JAX does
+        (so it leaves LoRA's updates as they are)."""
         nm = self.neg_marglik_fn(self.params, idx, yy)
-        adj = self.params["adj"]
-        g = None
+        leaves = [self.params[k] for k in self.adj_names]
+        grads = [None] * len(leaves)
         if nm.requires_grad:   # False when no path reaches any parameter
-            (g,) = torch.autograd.grad(nm, adj, allow_unused=True)
-        if g is None:          # adj unreachable: the fused op's zero grad
-            g = torch.zeros_like(adj)
-        if self.grad_norm:
-            gnorm = torch.sqrt(torch.sum(g ** 2))
-            g = g * torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12), max=1.0)
-        adj.grad = g
+            grads = torch.autograd.grad(nm, leaves, allow_unused=True)
+        for name, p, g in zip(self.adj_names, leaves, grads):
+            if g is None:      # unreachable: the fused op's zero grad
+                g = torch.zeros_like(p)
+            if self.grad_norm and name == "adj":
+                gnorm = torch.sqrt(torch.sum(g ** 2))
+                g = g * torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12),
+                                    max=1.0)
+            p.grad = g
         self.adj_opt.step()
         return nm.detach()
 
@@ -333,7 +348,8 @@ def marglik_optimization(model, params: dict,
         weight_decay_adj=weight_decay_adj, momentum_adj=momentum_adj,
         grad_norm=grad_norm, hessian_structure=hessian_structure,
         subset_of_weights=subset_of_weights, prior_precision=prior_precision,
-        N=N, fisher_type=fisher_type, sketch_size=sketch_size,
+        N=N, model_type=model_type, fisher_type=fisher_type,
+        sketch_size=sketch_size,
         column_chunk=column_chunk, mc_samples=mc_samples,
         diag_probes=diag_probes, probe_batch=probe_batch,
         fisher_seed=fisher_seed)

@@ -23,14 +23,13 @@ from laplace_gnn_tpu.graph import data as JD
 from laplace_gnn_tpu.graph import datasets as JDS
 from laplace_gnn_tpu.models import base_gnn as JB
 from laplace_gnn_tpu.training import experiment as JX
-from laplace_gnn_torch import models as TM
 from laplace_gnn_torch.curvature import kfac as TK
 from laplace_gnn_torch.graph import data as TD
 from laplace_gnn_torch.graph import datasets as TDS
 from laplace_gnn_torch.models import base_gnn as TB
 from laplace_gnn_torch.models.models import MODEL_REGISTRY
+from laplace_gnn_torch.ops import adjacency as TA
 from laplace_gnn_torch.training import experiment as TX
-from laplace_gnn_torch.training import marglik_gnn as TT
 from laplace_gnn_torch.utils.pytree import params_from_numpy
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -118,11 +117,21 @@ def test_config_copies_are_byte_identical():
 
 
 def test_registry_and_parser_keep_the_jax_keys():
-    assert set(MODEL_REGISTRY.names()) == set(
-        JX.argument_parser()._option_string_actions["--model_type"].choices)
-    for key in ("graphsage", "lorastegcn"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            MODEL_REGISTRY[key]
+    assert list(MODEL_REGISTRY) == \
+        JX.argument_parser()._option_string_actions["--model_type"].choices
+    assert TX.argument_parser()._option_string_actions[
+        "--model_type"].choices == list(MODEL_REGISTRY)
+    # every key constructs with the experiment's model-specific arguments
+    args = vars(TX.argument_parser().parse_args([]))
+    hp = {"ste_thresh": 0.5, "lora_r": 2}
+    eye = np.eye(6)
+    for key, cls in MODEL_REGISTRY.items():
+        spec = TX.model_specific_args({**args, "model_type": key}, hp,
+                                      np.arange(3))
+        model = cls(6, 4, 2, 2, eye, eye, device="cpu", **spec)
+        assert type(model).__name__ == type(JX.MODEL_REGISTRY[key](
+            6, 4, 2, 2, eye, eye, **spec)).__name__
+        assert model.apply(model.params(), None).shape == (6, 2)
     with pytest.raises(KeyError):
         MODEL_REGISTRY["nope"]
     t = vars(TX.argument_parser().parse_args([]))
@@ -151,15 +160,25 @@ ARGS = ["--dataset", "karate", "--overwrite_config", "true",
 def _main_both(argv, tmp_path, monkeypatch, capsys):
     """``main`` of both packages on ``argv``, the JAX init of each repeat
     carried into the port; the stats and summaries must agree."""
-    inits = []
-    j_init = JB.BaseGNN.init
+    inits, depth = [], [0]
 
-    def recording_init(self, key, dtype=None):
-        p = j_init(self, key, dtype)
-        inits.append(jax.tree_util.tree_map(np.asarray, p))
-        return p
+    def recording(j_init):
+        """The outermost init call's params (a model's own init adds its
+        parameters around BaseGNN.init's)."""
+        def recording_init(self, key, dtype=None):
+            depth[0] += 1
+            try:
+                p = j_init(self, key, dtype)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                inits.append(jax.tree_util.tree_map(np.asarray, p))
+            return p
+        return recording_init
 
-    monkeypatch.setattr(JB.BaseGNN, "init", recording_init)
+    for cls in {JB.BaseGNN, *JX.MODEL_REGISTRY.values()}:
+        if "init" in vars(cls):
+            monkeypatch.setattr(cls, "init", recording(vars(cls)["init"]))
     j = JX.main(argv + ["--base_out_dir", str(tmp_path / "jax")])
     carried = list(inits)
     monkeypatch.setattr(TB.BaseGNN, "init", lambda self, generator=None:
@@ -188,18 +207,37 @@ def _main_both(argv, tmp_path, monkeypatch, capsys):
     return t
 
 
-@pytest.mark.parametrize("model_type", ["gcn", "stegcn"])
-def test_main_matches_jax_on_karate(model_type, tmp_path, monkeypatch,
+@pytest.mark.parametrize("model_type,extra", [
+    ("gcn", []), ("stegcn", []), ("graphsage", []), ("stegraphsage", []),
+    ("lorastegcn", ["--lora_r", "2", "--lora_alpha", "8"]),
+    ("attstegcn", [])])
+def test_main_matches_jax_on_karate(model_type, extra, tmp_path, monkeypatch,
                                     capsys):
-    _main_both(ARGS + ["--model_type", model_type], tmp_path, monkeypatch,
-               capsys)
+    """Every model key through ``main``, with its model-specific flags.
+    GraphSAGE samples 10 neighbours a row in its train steps: JAX's
+    uniforms of each epoch's key are replayed in the port."""
+    n_epochs = int(ARGS[ARGS.index("--n_epochs") + 1])
+    rng, draws = jax.random.PRNGKey(0), []
+    for _ in range(n_epochs):      # the JAX trainer's key of each epoch
+        rng, sub = jax.random.split(rng)
+        draws.append(np.asarray(jax.random.uniform(jax.random.split(sub)[0],
+                                                   (34, 34))))
+    calls = iter(range(10 ** 6))
+    monkeypatch.setattr(TA, "_neigh_uniforms",
+                        lambda n, generator, dtype, device: torch.tensor(
+                            draws[next(calls) % n_epochs], dtype=dtype))
+    _main_both(ARGS + ["--model_type", model_type] + extra, tmp_path,
+               monkeypatch, capsys)
+    assert (next(calls) > 0) == (model_type == "graphsage")
 
 
-def test_unported_experiment_options_raise(tmp_path, monkeypatch, capsys):
+def test_experiment_options_and_diag_fit_match_jax(tmp_path, monkeypatch,
+                                                   capsys):
     """The curvature options reach the hypersteps as in JAX: a sketched
     type-2 Fisher in blocks of 2 columns (JAX's sketch carried into the
-    port) on karate. The Laplace flavours other than Kron still wait (item
-    14(a)), so a "diag" fit raises naming it."""
+    port) on karate. Then the whole experiment with a "diag" Laplace (its
+    hypersteps and post-hoc fits), residual Linears and batch norms,
+    against JAX."""
     monkeypatch.setattr(TK, "_sketch_projection",
                         lambda seed, C, k, dtype, device=None: torch.tensor(
                             np.asarray(JK._sketch_projection(
@@ -209,8 +247,9 @@ def test_unported_experiment_options_raise(tmp_path, monkeypatch, capsys):
                            "--column_chunk", "2", "--fisher_seed", "3"],
                    tmp_path, monkeypatch, capsys)
     assert (t["args"]["sketch_size"], t["args"]["column_chunk"]) == (4, 2)
-    model = TM.STEGCN(4, 4, 2, 2, np.eye(4), np.eye(4), device="cpu",
-                      dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=r"item 14\(a\)"):
-        TT.fit_laplace(model, model.params(), np.arange(4),
-                       np.array([0, 1, 0, 1]), hessian_structure="diag")
+    t = _main_both(ARGS + ["--model_type", "stegcn", "--hessian_structure",
+                           "diag", "--n_epochs", "4", "--res", "true",
+                           "--norm", "batch"],
+                   tmp_path / "diag", monkeypatch, capsys)
+    assert (t["args"]["hessian_structure"], t["args"]["res"],
+            t["args"]["norm"]) == ("diag", True, "batch")

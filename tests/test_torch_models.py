@@ -85,8 +85,10 @@ def test_dropout_and_norm():
     assert set(np.unique(y.numpy())) <= {0.0, 2.0}
     assert 0.4 < float((y == 0).double().mean()) < 0.6
     assert isinstance(TN.make_norm(None, 4), TN.Identity)
-    with pytest.raises(NotImplementedError):
-        TN.make_norm("layer", 4)
+    assert isinstance(TN.make_norm("layer", 4), TN.LayerNorm)
+    assert isinstance(TN.make_norm("batch", 4), TN.BatchNorm)
+    with pytest.raises(ValueError, match="Unknown normalization"):
+        TN.make_norm("group", 4)
 
 
 def test_subtree_helpers():
