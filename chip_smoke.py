@@ -11,8 +11,10 @@ Phases, each fatal:
   2. hold the ``core_spmm`` kernel against its plain PyTorch version at the
      main paths' shapes (CORE_CASES: the trainer's N = 2708 with d = 64 and
      7, plain and transposed; the hyperstep pullback's folded d = 49 and
-     448, transposed; the Jacobians' folded d = 12250 and 112000;
-     GCN's int8 at N = 2708 and 16384 and raw f32) and time it cold with
+     448, transposed; the Jacobians' folded d = 12250, 112000 and 28000
+     (hidden 16); GCN's int8 at N = 2708 and 16384, raw f32, and the raw
+     f32 row chunks of the GCN-res diagonal hyperstep, d = 23296, both
+     ways) and time it cold with
      CUDA events beside the plain version, torch.matmul on the
      pre-binarized matrix (f32; bf16 too at the wide widths) and its bound
      on this card, the trainer's shapes also warm; then check, untimed, the
@@ -106,7 +108,8 @@ Phases, each fatal:
      hyperstep timed; finite parameters, LoRA's hypersteps moving
      ``adj_lora_*`` and not ``adj``; then each model's train-mode loss,
      weight gradients and -log marglik on a small graph against the
-     float64 CPU path (1e-2);
+     float64 CPU path (1e-2 for the fused kernel's entries, 1e-4 for the
+     composed ones);
  13. the Laplace flavours: DiagLaplace on the phase-3 STE-GCN (hidden 64,
      P = 92231) and FullLaplace on an STE-GCN of hidden 16 (P = 23063)
      over the same graph and learned adjacency: fit, log marglik, marglik
@@ -116,7 +119,11 @@ Phases, each fatal:
      samples and a ``state_dict`` round trip to the same bits, each part
      with its time, peak memory and launches; then each flavour's log
      marglik, tuned prior precision and probit probabilities on a small
-     graph against the float64 CPU path (1e-2).
+     graph against the float64 CPU path (1e-2);
+ 14. hold ``core_spmm`` against its plain version, untimed, at every
+     (N, d, adjacency mode, t dtype, transpose) that phases 2-13 launched
+     and no earlier check covered (each launch's shape is recorded as it
+     is made), so no plan that the run chose goes unchecked.
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -150,6 +157,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_NODES, N_FEAT, HIDDEN, N_CLASS = 2708, 1433, 64, 7   # Cora's width
 DENSITY = 10556 / (2708 * 2708)                        # Cora's edge density
 N_TRAIN, N_VAL = 140, 500
+FULL_HIDDEN = 16         # phase 13's FullLaplace: the experiment grid's
+                         # smallest width
 
 # dense GAT, as the JAX package's flash benchmark configures it
 # (scripts/bench_gat_scale.py, BENCH_GAT.json n16384_h8)
@@ -268,8 +277,12 @@ def make_graph(np, rng):
 # hyperstep's KFAC pullback: the C columns folded into the feature axis by
 # _CoreFn's vmap rule (C x C at layer 2, C x HIDDEN at layer 1).
 # Jacobians: one chunk of JAC_CHUNK test nodes x C one-hot cotangents,
-# folded the same way. GCN: fused="int8" at Cora's size, "auto" at N =
-# 16384 (where it switches to int8), fused=True (raw f32)
+# folded the same way (at hidden 64, and at phase 13's FullLaplace width).
+# GCN: fused="int8" at Cora's size, "auto" at N = 16384 (where it switches
+# to int8), fused=True (raw f32). GCN(fused=True, res=True)'s diagonal
+# hyperstep: raw f32 row chunks of 2^28 // (C * P * 4) = 52 samples
+# (P = 184,007), both ways. Every other shape a phase launches is checked,
+# untimed, by the last phase (phase_core_launched)
 CORE_CASES = [
     ("trainer_layer1", N_NODES, HIDDEN, "f32_bin", (False, True)),
     ("trainer_layer2", N_NODES, N_CLASS, "f32_bin", (False, True)),
@@ -279,9 +292,13 @@ CORE_CASES = [
      (True,)),
     ("jacobians_layer1", N_NODES, 250 * N_CLASS * HIDDEN, "f32_bin",
      (True,)),
+    ("jacobians_layer1_h16", N_NODES, 250 * N_CLASS * FULL_HIDDEN, "f32_bin",
+     (True,)),
     ("gcn_int8", N_NODES, HIDDEN, "int8", (False,)),
     ("gcn_auto_int8", 16384, HIDDEN, "int8", (False,)),
     ("gcn_fused_f32", N_NODES, HIDDEN, "f32_raw", (False,)),
+    ("gcn_res_diag_rows", N_NODES, 52 * N_CLASS * HIDDEN, "f32_raw",
+     (False, True)),
 ]
 WARM_CASES = ("trainer_layer1", "trainer_layer2")
 
@@ -335,7 +352,33 @@ def core_adjacency(torch, n, kind, seed):
     return a, b
 
 
-def core_check(torch, fs, a, t, kind, transpose):
+# every core_spmm launch of the run, and every call core_check held against
+# the plain version, by core_key
+LAUNCHED, CHECKED = set(), set()
+
+
+def core_key(a, t, threshold, binarize, transpose):
+    """(N, d, adjacency mode, t's dtype, transpose, threshold)."""
+    kind = ("int8" if a.element_size() == 1
+            else "f32_bin" if binarize else "f32_raw")
+    return (a.shape[0], t.shape[1], kind, str(t.dtype).split(".")[-1],
+            bool(transpose), float(threshold))
+
+
+def record_launches(fs):
+    """From now on, add every core_spmm launch's core_key to LAUNCHED."""
+    launch = fs.CoreKernel._launch
+
+    def recorded(self, adj, t, threshold, binarize, transpose):
+        out = launch(self, adj, t, threshold, binarize, transpose)
+        if out.numel():                 # an empty t launches nothing
+            LAUNCHED.add(core_key(adj, t, threshold, binarize, transpose))
+        return out
+
+    fs.CoreKernel._launch = recorded
+
+
+def core_check(torch, fs, a, t, kind, transpose, threshold=0.5):
     """(kernel output, max abs error, its tolerance) against the plain
     version; raises when it disagrees or when a second call does not give
     the same bits. Binarized f32 A: B is exact in bf16
@@ -343,17 +386,18 @@ def core_check(torch, fs, a, t, kind, transpose):
     and t both round, held at 2^-7 |A|^T|t|; int8 0/1 A with t exact in
     bf16: exact."""
     binarize = kind == "f32_bin"
-    got = fs.core(a, t, 0.5, binarize, transpose)
+    got = fs.core(a, t, threshold, binarize, transpose)
     # deterministic: a split plan sums its partials in a fixed order
-    if not torch.equal(got, fs.core(a, t, 0.5, binarize, transpose)):
+    if not torch.equal(got, fs.core(a, t, threshold, binarize, transpose)):
         raise AssertionError(f"core_spmm {kind} n={a.shape[0]} d={t.shape[1]}"
                              f" T={transpose}: two calls differ")
-    ref = fs.core_reference(a, t, 0.5, binarize, transpose)
+    ref = fs.core_reference(a, t, threshold, binarize, transpose)
     err = (got.float() - ref.float()).abs()
     if kind == "int8":
         ok, tol = torch.equal(got, ref), 0.0
     else:
-        scale = fs.core_reference(a, t.abs(), 0.5, binarize, transpose)
+        scale = fs.core_reference(a, t.abs(), threshold, binarize,
+                                  transpose)
         bound = (2.0 ** -8 if binarize else 2.0 ** -7) * scale.float() + (
             1e-6 if binarize else 1e-5)
         ok, tol = bool((err <= bound).all()), float(bound.max())
@@ -362,6 +406,7 @@ def core_check(torch, fs, a, t, kind, transpose):
             and bool(torch.isfinite(got).all())):
         raise AssertionError(f"core_spmm {kind} n={a.shape[0]} d={t.shape[1]}"
                              f" T={transpose}: max err {float(err.max())}")
+    CHECKED.add(core_key(a, t, threshold, binarize, transpose))
     return got, float(err.max()), tol
 
 
@@ -494,6 +539,41 @@ def phase_core_checks(torch, fs):
         print("core_spmm check " + json.dumps(out[-1]), flush=True)
     if not any(r["split"] > 1 for r in out):
         raise AssertionError("core_spmm: no checked case split j")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_core_launched(torch, fs):
+    """core_spmm against its plain version, untimed, at every shape that a
+    phase launched and no core_check has held yet (the row chunks of the
+    trainers, hypersteps, fits and predictives), with t drawn on the card
+    at that shape and dtype; fails if any disagrees."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, adjs = [], {}
+    for key in sorted(LAUNCHED - CHECKED):
+        n, d, kind, t_dtype, transpose, threshold = key
+        if (n, kind) not in adjs:
+            adjs.clear()
+            adjs[(n, kind)] = core_adjacency(torch, n, kind, seed=n)[0]
+        a = adjs[(n, kind)]
+        g = torch.Generator(device="cuda").manual_seed(d)
+        t = torch.randn(n, d, generator=g, device="cuda")
+        if kind == "int8":
+            t = torch.round(t * 8) / 8            # exact in bf16
+        t = t.to(getattr(torch, t_dtype))
+        p = fs.plan(n, d, a.dtype, t.dtype, a.data_ptr(), t.data_ptr(), sms)
+        _, err, tol = core_check(torch, fs, a, t, kind, transpose, threshold)
+        out.append({"n": n, "d": d, "adj": kind, "t_dtype": t_dtype,
+                    "transpose": transpose, "threshold": threshold,
+                    "tile": p.tile, "split": p.split, "max_abs_err": err,
+                    "tol": tol})
+        print("core_spmm launched shape " + json.dumps(out[-1]), flush=True)
+        del t
+    if LAUNCHED - CHECKED:
+        raise AssertionError(f"core_spmm shapes never checked: "
+                             f"{sorted(LAUNCHED - CHECKED)}")
+    print(f"core_spmm: {len(LAUNCHED)} launched shapes, each held against "
+          f"the plain version ({len(out)} of them in this phase)", flush=True)
     torch.cuda.synchronize()
     return out
 
@@ -1843,8 +1923,7 @@ def phase_dense_models(torch, np, card):
         p = {k: v.detach().clone().requires_grad_(True) for k, v in
              final.items()}
         progs = TrainingPrograms(model, p, N=N_TRAIN, prior_precision=1.0,
-                                 hessian_structure=structure,
-                                 model_type=model_type, **CORA_CFG)
+                                 hessian_structure=structure, **CORA_CFG)
         gen = torch.Generator(device="cuda").manual_seed(0)
         core.launches = 0
         train_ms, _ = step_ms(torch, lambda: progs.train_step(idx, yy, gen))
@@ -1877,8 +1956,10 @@ def phase_dense_small(torch, np):
     against the float64 CPU path (which the CPU tests hold to the JAX
     package): a train-mode CE loss and its weight gradients (dropout 0; the
     neighbour sample's uniforms drawn in float32 on the CPU for both) and
-    the -log marglik of the entry's structure. Held at 1e-2 relative: the
-    fused kernel rounds its operands to bf16."""
+    the -log marglik of the entry's structure. The fused entries are held
+    at 1e-2 relative (the kernel rounds its operands to bf16), the composed
+    ones at 1e-4 (float32 throughout, TF32 off: a path that computed in
+    bf16 or TF32 would miss it)."""
     from laplace_gnn_torch.ops import adjacency
     from laplace_gnn_torch.training.marglik_gnn import (_ce_mean,
                                                         make_neg_marglik_fn)
@@ -1918,21 +1999,19 @@ def phase_dense_small(torch, np):
         (lc, gc, nc), (lp, gp, npp) = vals["cuda"], vals["cpu"]
         errs = (abs(lc - lp) / abs(lp), float((gc - gp).norm() / gp.norm()),
                 abs(nc - npp) / abs(npp))
-        if not all(math.isfinite(v) for v in (lc, nc)) or max(errs) > 1e-2:
+        tol = 1e-2 if opts.get("fused") else 1e-4
+        if not all(math.isfinite(v) for v in (lc, nc)) or max(errs) > tol:
             raise AssertionError(f"small-graph [{label}]: loss {lc} vs {lp}, "
                                  f"grad rel {errs[1]}, -log marglik {nc} vs "
                                  f"{npp}")
         out[label] = {"loss_rel": errs[0], "grad_rel": errs[1],
                       "neg_marglik": {"cuda": nc, "cpu": npp},
-                      "neg_marglik_rel": errs[2]}
+                      "neg_marglik_rel": errs[2], "tol": tol}
         print(f"small-graph [{label}]: train-mode loss rel {errs[0]:.2e}, "
               f"weight gradients rel {errs[1]:.2e}, -log marglik ({structure})"
               f" card {nc:.6f} vs CPU f64 {npp:.6f} (rel {errs[2]:.2e}; all "
-              f"held at 1e-2)", flush=True)
+              f"held at {tol:g})", flush=True)
     return out
-
-
-FULL_HIDDEN = 16         # the experiment grid's smallest width
 
 
 def phase_laplace_flavors(torch, np, state, kernels, card):
@@ -2149,6 +2228,7 @@ def main(argv=None) -> int:
         return out
 
     phase("1", build_kernels, cuda_build, out_dir)
+    record_launches(fs)
 
     rows, max_err = phase("2", phase_kernel, torch, fs, peaks)
     core_checks = phase("2", phase_core_checks, torch, fs)
@@ -2186,6 +2266,7 @@ def main(argv=None) -> int:
     flavors_small = phase("13", phase_laplace_flavors_small, torch, np)
     del stegcn_state
     torch.cuda.empty_cache()
+    launched = phase("14", phase_core_launched, torch, fs)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -2241,6 +2322,7 @@ def main(argv=None) -> int:
                    "dense_models": dense, "dense_small": dense_small,
                    "laplace_flavors": flavors,
                    "laplace_flavors_small": flavors_small,
+                   "core_spmm_launched": launched,
                    "phase_seconds": seconds,
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,6 +30,7 @@ import torch
 from ..curvature.interface import CurvatureBackend, GGNBackend
 from ..ops.linalg import normal_samples
 from ..utils.data import dataset_size
+from ..utils.metrics import fix_prior_prec_structure, mse_loss, nll_loss
 from ..utils.pytree import DEFAULT_EXCLUDE, merge_split, named_leaves
 from .enums import (LinkApprox, Likelihood, PredType, PriorStructure,
                     TuningMethod)
@@ -215,13 +216,10 @@ class BaseLaplace:
         ``loss`` is given)."""
         if method == TuningMethod.MARGLIK.value:
             init = torch.atleast_1d(self._scalar(init_prior_prec))
-            if (init.shape[0] == 1
-                    and prior_structure != PriorStructure.SCALAR.value):
-                n = {PriorStructure.LAYERWISE.value: self.n_layers,
-                     PriorStructure.DIAG.value: self.n_params
-                     }[prior_structure]
-                init = torch.full((n,), float(init[0]), dtype=self._dtype,
-                                  device=self._device)
+            if init.shape[0] == 1:
+                init = fix_prior_prec_structure(
+                    float(init[0]), prior_structure, self.n_layers,
+                    self.n_params, self._dtype, self._device)
             log_pp = torch.log(init).requires_grad_(True)
             opt = torch.optim.Adam([log_pp], lr=lr)
             for _ in range(n_steps):
@@ -256,7 +254,6 @@ class BaseLaplace:
         posterior cannot be factorised (``torch.linalg.LinAlgError``) or
         whose loss is not finite scores inf; any other error ends the
         search (JAX's scores every exception inf)."""
-        from ..utils.metrics import mse_loss, nll_loss
         if loss is None:
             # _validate predicts with fitting=True, so reward modeling
             # scores as classification

@@ -51,6 +51,9 @@ def _shallow_clone(module: nn.Module) -> nn.Module:
 
 
 class BaseGNN(nn.Module):
+    # what the trainer's hypersteps step (JAX's ADJ_PARAM_FILTERS)
+    adj_params = ("adj",)
+
     def __init__(self,
                  in_channels: int,
                  hidden_channels: int,
@@ -115,10 +118,8 @@ class BaseGNN(nn.Module):
                   **kwargs):
         raise NotImplementedError
 
-    def forward_adj(self, taps: Optional[TapCollector] = None,
-                    generator: Optional[torch.Generator] = None):
-        """Effective adjacency (or fused aggregation operator).
-        ``generator`` is given only to a train-mode forward that draws."""
+    def forward_adj(self, taps: Optional[TapCollector] = None):
+        """Effective adjacency (or fused aggregation operator)."""
         raise NotImplementedError
 
     def _draw(self, generator: torch.Generator) -> dict:
@@ -194,11 +195,12 @@ class BaseGNN(nn.Module):
     def forward(self, x_indices=None, taps: Optional[TapCollector] = None,
                 generator: Optional[torch.Generator] = None,
                 train: bool = False) -> torch.Tensor:
-        """The JAX order: conv, ``+ res(x)`` (untapped, as in JAX), norm,
-        act, dropout. A train-mode forward given a generator draws the
-        adjacency's sample (GraphSAGE) from it first, then the dropout
-        masks."""
-        adj = self.forward_adj(taps, generator if train else None)
+        return self._propagate(self.forward_adj(taps), x_indices, taps,
+                               generator, train)
+
+    def _propagate(self, adj, x_indices, taps, generator, train):
+        """Every layer over ``adj`` in the JAX order: conv, ``+ res(x)``
+        (untapped, as in JAX), norm, act, dropout."""
         x = self.X.to(self.adj.dtype)
         for i in range(self.num_layers - 1):
             h = self.convs[i](adj, x, taps=taps)

@@ -13,7 +13,6 @@ from typing import Optional
 import math
 
 import torch
-from torch import nn
 
 from ..nn.module import Linear, TapCollector
 from ..ops.adjacency import (binarize_ste, fill_diagonal, fill_diagonal_any,
@@ -54,8 +53,7 @@ class GCN(BaseGNN):
         self._static_op = (StaticNormAdjOp(self.init_adj)
                            if fused == "int8" else None)
 
-    def forward_adj(self, taps: Optional[TapCollector] = None,
-                    generator: Optional[torch.Generator] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None):
         if self.fused == "int8":
             return self._static_op
         adj = self.adj
@@ -82,13 +80,20 @@ class GraphSAGE(BaseGNN):
                          symmetric=symmetric, **kwargs)
         self.num_sampled_nodes_per_hop = num_sampled_nodes_per_hop
 
-    def forward_adj(self, taps: Optional[TapCollector] = None,
-                    generator: Optional[torch.Generator] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None):
+        return self.adj
+
+    def forward(self, x_indices=None, taps: Optional[TapCollector] = None,
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
+        """A train-mode forward given a generator draws the neighbour
+        sample from it first, then the dropout masks, as JAX splits its
+        key."""
         adj = self.adj
-        if self.num_sampled_nodes_per_hop is None or generator is None:
-            return adj
-        return adj * sample_neigh_adj(generator, adj,
-                                      self.num_sampled_nodes_per_hop)
+        k = self.num_sampled_nodes_per_hop
+        if train and generator is not None and k is not None:
+            adj = adj * sample_neigh_adj(generator, adj, k)
+        return self._propagate(adj, x_indices, taps, generator, train)
 
     def init_conv(self, in_channels, out_channels, name, **kwargs):
         return GraphSAGEConv(in_channels, out_channels, name=name, **kwargs)
@@ -124,8 +129,7 @@ class STEGCN(BaseGNN):
     def full_adj(self, params):
         return (params["adj"] > self.threshold).to(params["adj"].dtype)
 
-    def forward_adj(self, taps: Optional[TapCollector] = None,
-                    generator: Optional[torch.Generator] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None):
         adj = self.adj
         if self.fused:
             if ((taps is not None and taps.perturbed)
@@ -175,8 +179,7 @@ class STEGraphSAGE(BaseGNN):
     def full_adj(self, params):
         return (params["adj"] > self.threshold).to(params["adj"].dtype)
 
-    def forward_adj(self, taps: Optional[TapCollector] = None,
-                    generator: Optional[torch.Generator] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None):
         adj = self.adj
         if self.symmetric:
             adj = (adj + adj.T) / 2
@@ -191,6 +194,8 @@ class LoRASTEGCN(BaseGNN):
     """STE-GCN whose adjacency update is low-rank:
     ``STE(adj + B @ A * lora_alpha / r)``. The trainer's hypersteps move
     ``adj_lora_A`` (r, N) and ``adj_lora_B`` (N, r), not ``adj``."""
+
+    adj_params = ("adj_lora_A", "adj_lora_B")
 
     def __init__(self, in_channels, hidden_channels, out_channels, num_layers,
                  X, init_adj, r: int, lora_alpha: float, dropout_p=0.5,
@@ -220,8 +225,7 @@ class LoRASTEGCN(BaseGNN):
     def full_adj(self, params):
         return (params["adj"] > self.threshold).to(params["adj"].dtype)
 
-    def forward_adj(self, taps: Optional[TapCollector] = None,
-                    generator: Optional[torch.Generator] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None):
         adj = self.adj + (self.adj_lora_B @ self.adj_lora_A) * self.scaling
         if self.symmetric:
             adj = (adj + adj.T) / 2
@@ -253,8 +257,7 @@ class GAT(BaseGNN):
                          symmetric=symmetric, **kwargs)
         self.mask_dtype = _torch_dtype(mask_dtype)
 
-    def forward_adj(self, taps: Optional[TapCollector] = None,
-                    generator: Optional[torch.Generator] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None):
         if self.mask_dtype is not None:
             return (self.adj > 0).to(self.mask_dtype)
         return self.adj
@@ -308,8 +311,7 @@ class AttSTEGCN(BaseGNN):
         return torch.minimum(torch.maximum(score, score.new_zeros(())),
                              score.new_ones(()))
 
-    def forward_adj(self, taps: Optional[TapCollector] = None,
-                    generator: Optional[torch.Generator] = None):
+    def forward_adj(self, taps: Optional[TapCollector] = None):
         adj = self.construct_adj()
         if self.symmetric:
             adj = (adj + adj.T) / 2

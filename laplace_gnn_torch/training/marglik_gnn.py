@@ -1,8 +1,8 @@
 """Graph-structure-learning marglik training (the flagship workload).
 
 Counterpart of ``laplace_gnn_tpu/training/marglik_gnn.py``: Adam on the
-weights (every name without ``adj``), SGD(+momentum) on the adjacency
-parameters of ``ADJ_PARAM_FILTERS``, burn-in,
+weights (every name without ``adj``), SGD(+momentum) on the model's
+``adj_params`` (JAX's ``ADJ_PARAM_FILTERS``), burn-in,
 then every ``marglik_frequency`` epochs ``n_hypersteps`` updates of the
 adjacency on the negative log marginal likelihood of a freshly fit KFAC
 Laplace approximation, with marglik- and valloss-based early stopping.
@@ -37,11 +37,6 @@ from ..utils.pytree import named_leaves
 PATIENCE = 20
 
 NO_ADJ_UPDATE_MODELS = ("gcn", "gat", "graphsage")
-ADJ_PARAM_FILTERS = {
-    # which params the adjacency optimizer updates, per model type
-    "lorastegcn": lambda p: p.startswith("adj_lora"),
-    "default": lambda p: p == "adj",
-}
 
 
 def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
@@ -202,13 +197,12 @@ class TrainingPrograms:
     ``sgd(lr, momentum)`` is SGD with ``dampening=0``. Each touches only its
     own parameters: the weights (every name without ``adj``; AttSTEGCN's
     ``adj_W`` is in neither set, so it is never trained, as in JAX) and
-    the ones ``ADJ_PARAM_FILTERS`` selects for ``model_type`` (``adj``, or
-    LoRA's ``adj_lora_*``)."""
+    the model's ``adj_params`` (``adj``, or LoRA's ``adj_lora_*``)."""
 
     def __init__(self, model, params: dict, *, lr, weight_decay, lr_adj,
                  weight_decay_adj, momentum_adj, grad_norm,
                  hessian_structure, subset_of_weights, prior_precision, N,
-                 model_type="stegcn", fisher_type="type-2", **curvature):
+                 fisher_type="type-2", **curvature):
         self.model = model
         self.params = params
         self.grad_norm = grad_norm
@@ -216,9 +210,7 @@ class TrainingPrograms:
         self.weight_opt = torch.optim.Adam(
             [params[k] for k in self.weight_names], lr=lr,
             weight_decay=weight_decay)
-        adj_filter = ADJ_PARAM_FILTERS.get(model_type,
-                                           ADJ_PARAM_FILTERS["default"])
-        self.adj_names = [k for k in params if adj_filter(k)]
+        self.adj_names = list(model.adj_params)
         self.adj_opt = torch.optim.SGD(
             [params[k] for k in self.adj_names], lr=lr_adj,
             momentum=momentum_adj or 0.0, dampening=0.0,
@@ -348,8 +340,7 @@ def marglik_optimization(model, params: dict,
         weight_decay_adj=weight_decay_adj, momentum_adj=momentum_adj,
         grad_norm=grad_norm, hessian_structure=hessian_structure,
         subset_of_weights=subset_of_weights, prior_precision=prior_precision,
-        N=N, model_type=model_type, fisher_type=fisher_type,
-        sketch_size=sketch_size,
+        N=N, fisher_type=fisher_type, sketch_size=sketch_size,
         column_chunk=column_chunk, mc_samples=mc_samples,
         diag_probes=diag_probes, probe_batch=probe_batch,
         fisher_seed=fisher_seed)

@@ -2,7 +2,7 @@
 BatchNorm, ops/adjacency.py::sample_neigh_adj, models/layers.py::
 GraphSAGEConv, models/base_gnn.py's ``res`` and ``norm``, models/models.py's
 GraphSAGE, STEGraphSAGE, LoRASTEGCN and AttSTEGCN, and their hypersteps
-and trainer (training/marglik_gnn.py::ADJ_PARAM_FILTERS), torch against
+and trainer (the models' ``adj_params``), torch against
 JAX in float64 on the CPU.
 
 Composed float64 math: values are held at 1e-10 relative and gradients at
