@@ -120,10 +120,28 @@ Phases, each fatal:
      with its time, peak memory and launches; then each flavour's log
      marglik, tuned prior precision and probit probabilities on a small
      graph against the float64 CPU path (1e-2);
- 14. hold ``core_spmm`` against its plain version, untimed, at every
-     (N, d, adjacency mode, t dtype, transpose) that phases 2-13 launched
+ 14. the rest of the Laplace library on the phase-3 STE-GCN (hidden 64,
+     its learned adjacency): last-layer Kron (``Laplace()``'s default
+     key), Diag (with ``functional_variance_fast``) and Full (fit, log
+     marglik, 100 steps of marglik tuning, probit on 1000 nodes); GP
+     Laplace over all weights and over the last layer with n_subset 140
+     (fit, log marglik, a 10-value grid search on the 500 validation
+     nodes, probit and 100 predictive samples on 1000 nodes); subnetwork
+     masks of 4096 parameters (largest magnitude, largest Diag variance,
+     SWAG with 10 snapshots) and Full / Diag subnetwork Laplace on the
+     first two (fit, log marglik, probit, ``sample(100)``);
+     ``marglik_training`` with the adjacency fixed (layerwise prior,
+     Kron, 20 epochs, 5 of burn-in, 10 hypersteps every 5 epochs), its
+     marglik not falling and its refit; then Kron and last-layer Kron on
+     a LeNet-shaped CNN at MNIST's shape (fit on 1024 synthetic images,
+     probit on 256). Each part with its time, peak memory and launches;
+     then every flavour and ``marglik_training`` on a small graph, and
+     Kron on a small CNN, against the float64 CPU path;
+ 15. hold ``core_spmm`` against its plain version, untimed, at every
+     (N, d, adjacency mode, t dtype, transpose) that phases 2-14 launched
      and no earlier check covered (each launch's shape is recorded as it
-     is made), so no plan that the run chose goes unchecked.
+     is made), so no plan that the run chose goes unchecked; it stays the
+     last phase.
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -2136,6 +2154,306 @@ def phase_laplace_flavors_small(torch, np):
     return out
 
 
+# phase 14: the rest of the Laplace library at Cora's width
+LIB_SUBNET = 4096          # subnetwork size (a 64 MB f32 Full posterior)
+LIB_GRID, LIB_SAMPLES, LIB_SWAG = 10, 100, 10
+LIB_TRAINING = dict(hessian_structure="kron", prior_structure="layerwise",
+                    n_epochs=20, n_epochs_burnin=5, marglik_frequency=5,
+                    n_hypersteps=10)
+# LeNet's convolutions at MNIST's shape: 1 x 28 x 28 -> 6 -> 16 (5 x 5)
+CNN_SPECS, CNN_HEAD_IN, CNN_CLASSES = [(1, 6, 5), (6, 16, 5)], 16 * 20 * 20, 10
+CNN_TRAIN, CNN_TEST, CNN_BATCH = 1024, 256, 256
+# images per vmapped Jacobian pass: each of its C cotangent columns pulls
+# back through the whole batch (~80 MB a column at 256 images)
+CNN_JAC_CHUNK = 8
+
+
+def _fitted(la, loader):
+    la.fit(loader)
+    return la
+
+
+def _finite(torch, label, *tensors):
+    for t in tensors:
+        if not bool(torch.isfinite(torch.as_tensor(t)).all()):
+            raise AssertionError(f"{label}: non-finite values")
+
+
+def phase_library(torch, np, state, kernels, card):
+    """The rest of the Laplace library on the phase-3 STE-GCN (fused kernel
+    path, Cora's width, its learned adjacency): last-layer Kron (the
+    default key), Diag (with ``functional_variance_fast``) and Full; GP
+    Laplace over all weights and over the last layer; Full and Diag
+    subnetwork Laplace on 4096-parameter masks and a SWAG mask;
+    ``marglik_training``; then Kron and last-layer Kron on a LeNet-shaped
+    CNN at MNIST's shape. Each part with its time, peak memory and
+    launches."""
+    from laplace_gnn_torch.laplace import subnet
+    from laplace_gnn_torch.laplace.dispatch import Laplace
+    from laplace_gnn_torch.laplace.marglik import marglik_training
+    from laplace_gnn_torch.nn import CNN
+    from laplace_gnn_torch.utils.data import ArrayLoader
+    from laplace_gnn_torch.utils.pytree import tree_vector
+    model, params, y, perm = state
+    dev = params["adj"].device
+    params = {k: v.detach() for k, v in params.items()}
+    tr, va = perm[:N_TRAIN], perm[N_TRAIN:N_TRAIN + N_VAL]
+    te = perm[N_TRAIN + N_VAL:N_TRAIN + N_VAL + N_TEST]
+    idx = torch.as_tensor(te, device=dev)
+    train = ArrayLoader(tr, y[tr], device=dev)
+    val = ArrayLoader(va, y[va], device=dev)
+    bk = {"backend_kwargs": {"jac_chunk_size": JAC_CHUNK}}
+    on, off = {"core_spmm": None, "matmul": 0}, {"core_spmm": 0, "matmul": 0}
+    out = {}
+
+    def probit(part, la, **kw):
+        probs = part(f"probit_{len(te)}", lambda: la(idx, link_approx="probit",
+                                                     **kw), on)
+        _check_probs(np, probs, len(te))
+        return probs
+
+    # -- last layer: Kron (the default key), Diag, Full ----------------------
+    for structure in ("kron", "diag", "full"):
+        label = f"LL-{structure}"
+        part, parts = run_parts(torch, kernels, card, label)
+        kw = {} if structure == "kron" else {"hessian_structure": structure}
+        la = part("fit", lambda: _fitted(Laplace(
+            model, params, "classification", **kw, **bk), train), on)
+        lml = float(part("log_marglik", la.log_marginal_likelihood, off))
+        part("marglik_tuning_scalar_100", lambda: la.optimize_prior_precision(
+            method="marglik", n_steps=100), off)
+        probit(part, la)
+        if structure == "diag":
+            f, var = part(f"functional_variance_fast_{len(te)}",
+                          lambda: la.functional_variance_fast(idx), on)
+            # as in JAX, a GNN's features are the last conv's input over the
+            # whole graph: one variance row per node
+            if var.shape != (N_NODES, N_CLASS):
+                raise AssertionError(f"functional_variance_fast: {var.shape}")
+            _finite(torch, label, var)
+        _finite(torch, label, lml, la.prior_precision)
+        print(f"{label}: {type(la).__name__}, P = {la.n_params}, log marglik "
+              f"{lml:.4f}, tuned prior precision "
+              f"{la.prior_precision.tolist()}  [{card}]", flush=True)
+        out[label] = {"parts": parts, "n_params": la.n_params,
+                      "log_marglik": lml}
+        del la
+    torch.cuda.empty_cache()
+
+    # -- GP over all weights and over the last layer -------------------------
+    for subset in ("all", "last_layer"):
+        label = f"GP-{subset}"
+        part, parts = run_parts(torch, kernels, card, label)
+        la = part("fit", lambda: _fitted(Laplace(
+            model, params, "classification", subset, "gp",
+            n_subset=N_TRAIN, **bk), train), on)
+        lml = float(part("log_marglik", la.log_marginal_likelihood, off))
+        part(f"gridsearch_{LIB_GRID}", lambda: la.optimize_prior_precision(
+            method="gridsearch", val_loader=val, grid_size=LIB_GRID), on)
+        probit(part, la)
+        s = part(f"predictive_samples_{LIB_SAMPLES}", lambda: (
+            la.predictive_samples(idx, n_samples=LIB_SAMPLES)), on)
+        if s.shape != (LIB_SAMPLES, len(te), N_CLASS):
+            raise AssertionError(f"{label} samples: {tuple(s.shape)}")
+        _finite(torch, label, lml, s, la.prior_precision)
+        print(f"{label}: P = {la.n_params}, J_M {tuple(la._J_M.shape)} "
+              f"{la._J_M.dtype}, K_MM {tuple(la.K_MM.shape)}, log marglik "
+              f"{lml:.4f}, grid-searched prior precision "
+              f"{la.prior_precision.tolist()}  [{card}]", flush=True)
+        out[label] = {"parts": parts, "n_params": la.n_params,
+                      "log_marglik": lml, "J_M": list(la._J_M.shape)}
+        del la, s
+        torch.cuda.empty_cache()
+
+    # -- subnetworks -----------------------------------------------------------
+    part, parts = run_parts(torch, kernels, card, "subnet masks")
+    masks = {
+        "largest_magnitude": part("largest_magnitude", lambda: (
+            subnet.LargestMagnitudeSubnetMask(model, params, LIB_SUBNET)
+            .select(train)), off),
+        "largest_variance_diag": part("largest_variance_diag", lambda: (
+            subnet.LargestVarianceDiagLaplaceSubnetMask(
+                model, params, LIB_SUBNET).select(train)), on),
+        "largest_variance_swag": part(f"largest_variance_swag_{LIB_SWAG}",
+                                      lambda: (
+            subnet.LargestVarianceSWAGSubnetMask(
+                model, params, LIB_SUBNET, swag_n_snapshots=LIB_SWAG)
+            .select(train)), on)}
+    for name, m in masks.items():
+        if m.shape != (LIB_SUBNET,) or not bool((m[1:] > m[:-1]).all()):
+            raise AssertionError(f"{name} mask: {tuple(m.shape)}")
+    out["subnet masks"] = {"parts": parts}
+    for structure, mask in (("full", "largest_magnitude"),
+                            ("diag", "largest_variance_diag")):
+        label = f"subnet-{structure}"
+        part, parts = run_parts(torch, kernels, card, label)
+        la = part("fit", lambda: _fitted(Laplace(
+            model, params, "classification", "subnetwork", structure,
+            subnetwork_indices=masks[mask], **bk), train), on)
+        lml = float(part("log_marglik", la.log_marginal_likelihood, off))
+        probit(part, la)
+        s = part(f"sample_{LIB_SAMPLES}", lambda: la.sample(LIB_SAMPLES), off)
+        theta = tree_vector(la.backend.w)
+        rest = torch.ones(theta.shape[0], dtype=torch.bool, device=dev)
+        rest[masks[mask]] = False
+        if s.shape != (LIB_SAMPLES, theta.shape[0]) or not torch.equal(
+                s[:, rest], theta[rest].expand(LIB_SAMPLES, -1)):
+            raise AssertionError(f"{label} samples: {tuple(s.shape)}")
+        _finite(torch, label, lml, s)
+        print(f"{label}: P = {la.n_params} of {theta.shape[0]} ({mask} "
+              f"mask), log marglik {lml:.4f}  [{card}]", flush=True)
+        out[label] = {"parts": parts, "n_params": la.n_params,
+                      "log_marglik": lml}
+        del la, s
+        torch.cuda.empty_cache()
+
+    # -- marglik_training with the adjacency fixed -----------------------------
+    part, parts = run_parts(torch, kernels, card, "marglik_training")
+    la, best, margliks, losses = part("run", lambda: marglik_training(
+        model, params, train, device=dev, **LIB_TRAINING), on)
+    final = float(part("refit_log_marglik", la.log_marginal_likelihood, off))
+    _finite(torch, "marglik_training", margliks, losses, final)
+    if margliks[-1] < margliks[0]:
+        raise AssertionError(f"marglik fell: {margliks}")
+    if not torch.equal(best["adj"], params["adj"]):
+        raise AssertionError("marglik_training moved the adjacency")
+    print(f"marglik_training: margliks {margliks}; losses {losses[0]:.4f} .. "
+          f"{losses[-1]:.4f}; prior precision {la.prior_precision.tolist()}; "
+          f"refit log marglik {final:.4f}  [{card}]", flush=True)
+    out["marglik_training"] = {"parts": parts, "margliks": margliks,
+                               "losses": losses, "refit_log_marglik": final,
+                               "prior_precision": la.prior_precision.tolist()}
+    del la, best
+    torch.cuda.empty_cache()
+
+    # -- a LeNet-shaped CNN at MNIST's shape (no kernel of the port) -----------
+    rng = np.random.default_rng(14)
+    Xc = rng.standard_normal((CNN_TRAIN + CNN_TEST, 1, 28, 28)).astype(
+        np.float32)
+    yc = rng.integers(0, CNN_CLASSES, CNN_TRAIN + CNN_TEST)
+    cnn = CNN(CNN_SPECS, CNN_HEAD_IN, CNN_CLASSES, device=dev,
+              generator=torch.Generator().manual_seed(0))
+    loader = ArrayLoader(Xc[:CNN_TRAIN], yc[:CNN_TRAIN],
+                         batch_size=CNN_BATCH, device=dev)
+    Xt = torch.as_tensor(Xc[CNN_TRAIN:], device=dev)
+    for subset in ("all", "last_layer"):
+        label = f"CNN-{subset}-kron"
+        part, parts = run_parts(torch, kernels, card, label)
+        la = part("fit", lambda: _fitted(Laplace(
+            cnn, cnn.params(), "classification", subset, "kron",
+            backend_kwargs={"jac_chunk_size": CNN_JAC_CHUNK}), loader), off)
+        lml = float(part("log_marglik", la.log_marginal_likelihood, off))
+        probs = part(f"probit_{CNN_TEST}", lambda: la(Xt, link_approx="probit"),
+                     off)
+        p = probs.detach().cpu().numpy()
+        if p.shape != (CNN_TEST, CNN_CLASSES) or not np.all(np.isfinite(p)) \
+                or np.abs(p.sum(-1) - 1).max() > 1e-4:
+            raise AssertionError(f"{label} probit: {p.shape}")
+        _finite(torch, label, lml)
+        print(f"{label}: P = {la.n_params}, Kron factors "
+              f"{[[tuple(f.shape) for f in g] for g in la.H_facs.kfacs]}, "
+              f"log marglik {lml:.4f}  [{card}]", flush=True)
+        out[label] = {"parts": parts, "n_params": la.n_params,
+                      "log_marglik": lml}
+        del la
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_library_small(torch, np, devices=None):
+    """The same flavours on a small graph, the kernel path in float32 on
+    the card against the float64 CPU path (which the CPU tests hold to the
+    JAX package): each flavour's log marglik and probit probabilities, and
+    marglik_training's trace and final prior, held at 1e-2 (the kernel
+    rounds its operands to bf16); then Kron on a small CNN, at 1e-4 (no
+    kernel). ``devices`` maps "card" and "ref" to (device, dtype)."""
+    from laplace_gnn_torch.laplace import subnet
+    from laplace_gnn_torch.laplace.dispatch import Laplace
+    from laplace_gnn_torch.laplace.marglik import marglik_training
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.nn import CNN
+    from laplace_gnn_torch.training.marglik_gnn import fit_laplace
+    from laplace_gnn_torch.utils.data import ArrayLoader
+    rng = np.random.default_rng(14)
+    n, f = 96, 24
+    X = rng.standard_normal((n, f))
+    a = (rng.random((n, n)) < 0.08).astype(float)
+    adj = np.minimum(a + a.T, 1.0)
+    np.fill_diagonal(adj, 0.0)
+    y = rng.integers(0, N_CLASS, n)
+    tr, te = np.arange(40), np.arange(40, n)
+    devices = devices or {"card": ("cuda", torch.float32),
+                          "ref": ("cpu", torch.float64)}
+    models = {k: STEGCN(f, 16, N_CLASS, 2, X, adj, dropout_p=0.0,
+                        fused=True, symmetric=True, device=dev, dtype=dt,
+                        generator=torch.Generator().manual_seed(0))
+              for k, (dev, dt) in devices.items()}
+    cpu = models["ref"]
+    subnet_idx = subnet.LargestMagnitudeSubnetMask(
+        cpu, cpu.params(), 200).select()
+    keys = [("last_layer", "kron", {}), ("last_layer", "diag", {}),
+            ("last_layer", "full", {}), ("all", "gp", {"n_subset": 20}),
+            ("last_layer", "gp", {"n_subset": 20}),
+            ("subnetwork", "full", {"subnetwork_indices": subnet_idx}),
+            ("subnetwork", "diag", {"subnetwork_indices": subnet_idx})]
+    out = {}
+    for subset, structure, kw in keys:
+        vals = {}
+        for k, m in models.items():
+            la = fit_laplace(m, m.params(), tr, y[tr], subset, structure,
+                             **kw)
+            vals[k] = (float(la.log_marginal_likelihood()),
+                       la(torch.as_tensor(te, device=devices[k][0]),
+                          link_approx="probit").detach().double().cpu())
+        (lc, qc), (lp, qp) = vals["card"], vals["ref"]
+        errs = (abs(lc - lp) / abs(lp), float((qc - qp).abs().max()))
+        if not math.isfinite(lc) or max(errs) > 1e-2:
+            raise AssertionError(f"small {subset} {structure}: {vals}")
+        out[f"{subset}-{structure}"] = {"log_marglik": {"card": lc,
+                                                        "ref": lp},
+                                        "errors": errs}
+        print(f"small-graph {subset} {structure}: log marglik card "
+              f"{lc:.6f} vs CPU f64 {lp:.6f} (rel {errs[0]:.2e}); probit max "
+              f"abs diff {errs[1]:.2e} (held at 1e-2)", flush=True)
+    runs = {}
+    for k, m in models.items():
+        dev = devices[k][0]
+        la, _, ml, ls = marglik_training(
+            m, m.params(), ArrayLoader(tr, y[tr], device=dev), device=dev,
+            n_epochs=4, marglik_frequency=2, n_hypersteps=3)
+        runs[k] = (np.array(ml), np.array(ls),
+                   la.prior_precision.double().cpu().numpy())
+    errs = [float(np.max(np.abs(c - p) / np.abs(p)))
+            for c, p in zip(runs["card"], runs["ref"])]
+    if max(errs) > 1e-2:
+        raise AssertionError(f"small marglik_training: {runs}")
+    out["marglik_training"] = {"errors": errs}
+    print(f"small-graph marglik_training: margliks, losses, prior "
+          f"precision max rel {errs} (held at 1e-2)", flush=True)
+    Xc = rng.standard_normal((32, 1, 8, 8))
+    yc = rng.integers(0, 4, 32)
+    vals = {}
+    for k, (dev, dt) in devices.items():
+        cnn = CNN([(1, 3, 3), (3, 4, 3)], 4 * 4 * 4, 4, device=dev, dtype=dt,
+                  generator=torch.Generator().manual_seed(0))
+        la = _fitted(Laplace(cnn, cnn.params(), "classification", "all",
+                             "kron"), ArrayLoader(Xc.astype(np.float32 if dt
+                                                  == torch.float32 else
+                                                  np.float64), yc,
+                                                  batch_size=16, device=dev))
+        vals[k] = (float(la.log_marginal_likelihood()), la(
+            torch.as_tensor(Xc, device=dev, dtype=dt)).double().cpu())
+    (lc, qc), (lp, qp) = vals["card"], vals["ref"]
+    errs = (abs(lc - lp) / abs(lp), float((qc - qp).abs().max()))
+    if max(errs) > 1e-4:
+        raise AssertionError(f"small CNN Kron: {vals}")
+    out["cnn"] = {"errors": errs}
+    print(f"small CNN Kron: log marglik card {lc:.6f} vs CPU f64 {lp:.6f} "
+          f"(rel {errs[0]:.2e}); probit max abs diff {errs[1]:.2e} (held at "
+          f"1e-4)", flush=True)
+    return out
+
+
 def build_kernels(cuda_build, out_dir, names=None):
     """Phase 1: build the named sources (default all), one nvcc each, all at
     once; each ptxas report goes to ``build_<source>.log``."""
@@ -2264,9 +2582,12 @@ def main(argv=None) -> int:
     flavors = phase("13", phase_laplace_flavors, torch, np, stegcn_state,
                     counted, card)
     flavors_small = phase("13", phase_laplace_flavors_small, torch, np)
+    library = phase("14", phase_library, torch, np, stegcn_state, counted,
+                    card)
+    library_small = phase("14", phase_library_small, torch, np)
     del stegcn_state
     torch.cuda.empty_cache()
-    launched = phase("14", phase_core_launched, torch, fs)
+    launched = phase("15", phase_core_launched, torch, fs)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -2322,6 +2643,7 @@ def main(argv=None) -> int:
                    "dense_models": dense, "dense_small": dense_small,
                    "laplace_flavors": flavors,
                    "laplace_flavors_small": flavors_small,
+                   "library": library, "library_small": library_small,
                    "core_spmm_launched": launched,
                    "phase_seconds": seconds,
                    "kernels": kernels}, f, indent=1, default=str)

@@ -5,7 +5,11 @@ the Hessian) ``kron``, and the Jacobians of the GLM predictive.
 
 A backend is built from (model, params, likelihood); the posterior subset
 ``w`` excludes parameters named ``adj``/``norms``, optionally restricted
-to the last layer.
+to the last layer, and ``subnetwork_indices`` may select entries of its
+flat vector (subnetwork Laplace): then Jacobians, gradients, the diagonal
+and the Hessian are over those entries only. On a model whose last
+Linear's output is the model output (``last_layer_closed_form``), the
+last-layer Jacobians are the closed form ``[I, I (x) phi]``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..nn.module import _prefix
 from ..utils.pytree import (DEFAULT_EXCLUDE, merge_split, named_leaves,
                             tree_size, tree_vector)
 from .kfac import _fold_seed, compute_kfac_factors, posterior_split
@@ -34,13 +39,16 @@ def _middle_draw(m: int, likelihood: str, f: torch.Tensor) -> torch.Tensor:
 
 class CurvatureBackend:
     def __init__(self, model, params: dict, likelihood: str,
-                 last_layer: bool = False, exclude=DEFAULT_EXCLUDE,
+                 last_layer: bool = False,
+                 subnetwork_indices: Optional[torch.Tensor] = None,
+                 exclude=DEFAULT_EXCLUDE,
                  jac_chunk_size: Optional[int] = None):
         self.model = model
         self.likelihood = likelihood
         self.lossfunc = get_loss_fn(likelihood)
         self.factor = likelihood_factor(likelihood)
         self.last_layer = last_layer
+        self.subnetwork_indices = subnetwork_indices
         self.exclude = tuple(exclude)
         self.jac_chunk_size = jac_chunk_size
         self.set_params(params)
@@ -53,10 +61,19 @@ class CurvatureBackend:
 
     @property
     def n_params(self) -> int:
+        if self.subnetwork_indices is not None:
+            return int(len(self.subnetwork_indices))
         return self.n_params_full
 
+    def _subnet(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s last axis at the subnetwork indices (all of it when
+        there are none)."""
+        if self.subnetwork_indices is None:
+            return t
+        return t[..., self.subnetwork_indices]
+
     def mean_vector(self) -> torch.Tensor:
-        return tree_vector(self.w)
+        return self._subnet(tree_vector(self.w))
 
     def model_fn(self, w: dict, X) -> torch.Tensor:
         return self.model.apply(merge_split(w, self.frozen), X)
@@ -112,8 +129,28 @@ class CurvatureBackend:
         out, rows = self._jacobian_rows(X)
         M = out.shape[0]
         chunk = self._chunk(M, chunk_size)
-        return torch.cat([rows(m0, min(m0 + chunk, M))
+        return torch.cat([self._subnet(rows(m0, min(m0 + chunk, M)))
                           for m0 in range(0, M, chunk)]), out
+
+    def last_layer_jacobians(self, X) -> tuple[torch.Tensor, torch.Tensor]:
+        """(Js (M, C, P_ll), f (M, C)) of the last layer in closed form from
+        its input features phi: f = phi W^T + b, so d f_c / d b = e_c and
+        d f_c / d W[c', d] = delta(c, c') phi_d. Bias block first, then the
+        weight, in the posterior's leaf order."""
+        phi, f = self.model.features(self.params, X)
+        M, C = f.shape
+        if phi.shape[0] != M:
+            # e.g. a reward model whose last layer sees each pair's two
+            # rows; JAX fails here on the reshape
+            raise ValueError(
+                f"the closed-form last-layer Jacobians need one feature row "
+                f"per output row; got {phi.shape[0]} for {M}")
+        eye = torch.eye(C, dtype=f.dtype, device=f.device)
+        Jw = torch.einsum("ck,md->mckd", eye, phi).reshape(M, C, -1)
+        ll = _prefix(self.model.last_layer_path(self.params))
+        if f"{ll}.bias" in self.w:
+            return torch.cat([eye.expand(M, C, C), Jw], dim=-1), f
+        return Jw, f
 
     def gradients(self, X, y) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-sample gradients Gs (M, P) of the raw sum-loss and the total
@@ -132,7 +169,7 @@ class CurvatureBackend:
                         device=losses.device)
         grads = torch.func.vmap(pullback)(eye)
         Gs = torch.cat([g.reshape(eye.shape[0], -1) for g in grads], dim=1)
-        return Gs, torch.sum(losses)
+        return self._subnet(Gs), torch.sum(losses)
 
     def full(self, X, y, N: Optional[int] = None):
         raise NotImplementedError
@@ -216,10 +253,16 @@ class GGNBackend(CurvatureBackend):
             return None
         return loss_hessian(self.likelihood, f)
 
+    @property
+    def _closed_form(self) -> bool:
+        return self.last_layer and getattr(self.model,
+                                           "last_layer_closed_form", False)
+
     def _jacs(self, X):
-        """The GLM predictive's Jacobians. The closed-form last-layer
-        Jacobians wait with the last-layer flavours (ROADMAP Queue 1 item
-        14(a)); no GNN of the JAX package takes them either."""
+        """The GLM predictive's Jacobians: the closed form on a last layer
+        that allows it, else autodiff."""
+        if self._closed_form:
+            return self.last_layer_jacobians(X)
         return self.jacobians(X)
 
     def full(self, X, y, N=None):
@@ -235,7 +278,14 @@ class GGNBackend(CurvatureBackend):
         """GGN / Fisher diagonal with bounded memory: ``row_chunk`` samples
         (C Jacobian rows each) per vmapped pass, the diagonal summed over
         the passes, so the whole (M, C, P) stack never exists. The default
-        chunk keeps a pass's rows near 256 MB (``jac_chunk_size`` if set)."""
+        chunk keeps a pass's rows near 256 MB (``jac_chunk_size`` if set).
+        A closed-form last layer takes its Jacobians in one piece."""
+        if self._closed_form:
+            Js, f = self.last_layer_jacobians(X)
+            H_lik = self._functional_middle(f)
+            h = (torch.einsum("bcp,bcp->p", Js, Js) if H_lik is None else
+                 torch.einsum("bcp,bck,bkp->p", Js, H_lik, Js))
+            return self.factor * self.lossfunc(f, y), h
         f, rows = self._jacobian_rows(X)
         M, C = f.shape
         if row_chunk is None:
@@ -246,7 +296,7 @@ class GGNBackend(CurvatureBackend):
         H_lik = self._functional_middle(f)
         h = None
         for m0 in range(0, M, chunk):
-            Js = rows(m0, min(m0 + chunk, M))
+            Js = self._subnet(rows(m0, min(m0 + chunk, M)))
             hc = (torch.einsum("bcp,bcp->p", Js, Js) if H_lik is None else
                   torch.einsum("bcp,bck,bkp->p", Js, H_lik[m0:m0 + chunk], Js))
             h = hc if h is None else h + hc
@@ -294,8 +344,15 @@ class HessianBackend(CurvatureBackend):
                 torch.split(flat_w, sizes), shapes))))
             return self.lossfunc(self.model_fn(w_, X), y)
 
-        H = torch.func.jacrev(torch.func.jacrev(total_loss))(
-            tree_vector(self.w))
+        theta = tree_vector(self.w)
+        idx = self.subnetwork_indices
+        if idx is None:
+            H = torch.func.jacrev(torch.func.jacrev(total_loss))(theta)
+        else:
+            def sub_loss(sub):
+                return total_loss(theta.index_copy(0, idx, sub))
+
+            H = torch.func.jacrev(torch.func.jacrev(sub_loss))(theta[idx])
         return self.loss(X, y), self.factor * H
 
     def diag(self, X, y, N=None):

@@ -308,15 +308,26 @@ def posterior_split(model, params, exclude=DEFAULT_EXCLUDE,
     return w, frozen, sites
 
 
-def _zero_perturbations(model, params, sites) -> dict:
-    """eps0: a zero perturbation of each site's pre-activation, which is
-    (rows of the model's features, out features of the site's Linear):
-    every layer of a BaseGNN runs on the whole graph."""
+def _zero_perturbations(model, params, sites, X) -> dict:
+    """eps0: a zero perturbation of each site's pre-activation. On a
+    BaseGNN that is (rows of the model's features, out features of the
+    site's Linear): every layer runs on the whole graph. Other models
+    (MLP, CNN) give the shapes of the pre-activations that one forward on
+    ``X`` records."""
+    feats = getattr(model, "X", None)
+    shapes = {}
+    if feats is None:
+        taps = TapCollector()
+        with torch.no_grad():
+            model.apply(params, X, taps=taps)
+        shapes = {name: s.shape for name, _, s in taps.records}
     out = {}
     for s in sites:
         weight = params[".".join(map(str, s["param_path"])) + ".weight"]
-        out[s["name"]] = torch.zeros((model.X.shape[0], weight.shape[0]),
-                                     dtype=weight.dtype, device=weight.device)
+        shape = (shapes[s["name"]] if feats is None
+                 else (feats.shape[0], weight.shape[0]))
+        out[s["name"]] = torch.zeros(shape, dtype=weight.dtype,
+                                     device=weight.device)
     return out
 
 
@@ -370,7 +381,7 @@ def compute_kfac_factors(model, params, X, y, likelihood: str,
         acts = {name: a for name, a, _ in taps.records if name in site_names}
         return out, acts
 
-    eps0 = _zero_perturbations(model, params, sites)
+    eps0 = _zero_perturbations(model, params, sites, X)
     out, pullback, acts = torch.func.vjp(f_of_eps, eps0, has_aux=True)
     for name in site_names:
         # JAX raises KeyError here: a residual Linear (res=True) is a

@@ -74,7 +74,7 @@ class BaseLaplace:
         params = {k: v.detach() for k, v in params.items()}
         self.backend: CurvatureBackend = backend_cls(
             curv_model, params, fit_likelihood, exclude=exclude,
-            **(backend_kwargs or {}))
+            **self._backend_extra(), **(backend_kwargs or {}))
 
         theta = self.backend.mean_vector()
         self._dtype, self._device = theta.dtype, theta.device
@@ -96,6 +96,11 @@ class BaseLaplace:
 
     def _default_backend(self):
         return GGNBackend
+
+    def _backend_extra(self) -> dict:
+        """Backend options of a flavour (``last_layer``,
+        ``subnetwork_indices``)."""
+        return {}
 
     @property
     def params(self):

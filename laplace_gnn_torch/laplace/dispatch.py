@@ -1,22 +1,23 @@
 """``Laplace()``: maps (subset_of_weights, hessian_structure) to a flavour
 class (counterpart of ``laplace_gnn_tpu/laplace/dispatch.py``).
 
-Ported: ``("all", "kron" | "full" | "diag")``. Every other flavour of the
-JAX package raises ``NotImplementedError`` naming its ROADMAP item."""
+Every flavour of the JAX package is ported but ``("all", "lowrank")``,
+which raises ``NotImplementedError`` naming its ROADMAP item."""
 
 from __future__ import annotations
 
 from .flavors import DiagLaplace, FullLaplace, KronLaplace
+from .functional import FunctionalLaplace, FunctionalLLLaplace
+from .lllaplace import DiagLLLaplace, FullLLLaplace, KronLLLaplace
+from .subnet import DiagSubnetLaplace, FullSubnetLaplace
 
-PORTED = {cls._key: cls for cls in (KronLaplace, FullLaplace, DiagLaplace)}
+PORTED = {cls._key: cls for cls in (
+    KronLaplace, FullLaplace, DiagLaplace, FullLLLaplace, KronLLLaplace,
+    DiagLLLaplace, FullSubnetLaplace, DiagSubnetLaplace, FunctionalLaplace,
+    FunctionalLLLaplace)}
 
-# the JAX package's other flavours, by the ROADMAP Queue 1 item they wait
-# with: LowRank needs the curvature engine's Lanczos and GGN operator
-WAITING = {("all", "lowrank"): "14(c)",
-           **{key: "14(a)" for key in (
-               ("all", "gp"), ("last_layer", "full"), ("last_layer", "kron"),
-               ("last_layer", "diag"), ("last_layer", "gp"),
-               ("subnetwork", "full"), ("subnetwork", "diag"))}}
+# LowRank waits with the curvature engine's Lanczos and GGN operator
+WAITING = {("all", "lowrank"): "14(c)"}
 
 
 def Laplace(model, params, likelihood: str,

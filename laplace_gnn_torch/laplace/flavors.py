@@ -113,8 +113,11 @@ class KronLaplace(ParametricLaplace):
 
     def _curv_closure(self, X, y, N: int, batch_idx: int = 0):
         # detached: the tap perturbations of the KFAC pass would otherwise
-        # keep the whole forward graph alive behind the loss and A factors
-        loss, kron = self.backend.kron(X, y, N=N)
+        # keep the whole forward graph alive behind the loss and A factors.
+        # The batch index is folded into the seed, as in JAX, so the sketch
+        # and MC noise of a multi-batch fit is independent across batches
+        seed = getattr(self.backend, "seed", 0) + batch_idx
+        loss, kron = self.backend.kron(X, y, N=N, seed=seed)
         return loss.detach(), Kron([[f.detach() for f in g]
                                     for g in kron.kfacs])
 

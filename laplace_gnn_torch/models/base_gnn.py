@@ -221,6 +221,19 @@ class BaseGNN(nn.Module):
                                 "train": train})
 
     # --- introspection for Laplace / KFAC ---------------------------------
+    # The last Linear's output is aggregated before it becomes the model
+    # output, so the closed-form (features x I) last-layer Jacobian is not
+    # the model's: last-layer Laplace takes autodiff Jacobians here.
+    last_layer_closed_form = False
+
+    def features(self, params: dict, X=None) -> tuple:
+        """(the last conv's tap input over the whole graph, the model
+        output at ``X``)."""
+        taps = TapCollector()
+        f = self.apply(params, X, taps=taps)
+        last = self.convs[-1].name
+        return [a for n, a, _ in taps.records if n == last][-1], f
+
     def tap_sites(self, params: Optional[dict] = None) -> list[dict]:
         """Every conv's sites, then the residual Linears', as JAX lists
         them. The residual Linears record no tap (JAX applies them

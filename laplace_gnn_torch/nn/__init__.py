@@ -1,7 +1,8 @@
-from .module import (BatchNorm, Identity, LayerNorm, Linear, TapCollector,
-                     activation_resolver, dropout, get_subtree, make_norm,
-                     set_subtree)
+from .module import (CNN, MLP, BatchNorm, Conv2d, DictInputModel, Identity,
+                     LayerNorm, Linear, TapCollector, activation_resolver,
+                     dropout, get_subtree, make_norm, set_subtree)
 
-__all__ = ["BatchNorm", "Identity", "LayerNorm", "Linear", "TapCollector",
+__all__ = ["CNN", "MLP", "BatchNorm", "Conv2d", "DictInputModel",
+           "Identity", "LayerNorm", "Linear", "TapCollector",
            "activation_resolver", "dropout", "get_subtree", "make_norm",
            "set_subtree"]

@@ -7,6 +7,11 @@ Counterpart of ``laplace_gnn_tpu/nn/module.py``. Parameters live in
 and any parameter subset can be differentiated the way the JAX package
 differentiates a params pytree.
 
+The library's own models sit here too: ``Conv2d`` (im2col through
+``torch.nn.functional.unfold``), ``MLP``, ``CNN`` and the
+``DictInputModel`` adapter for mapping batches. Like the GNNs they build
+on ``cuda`` unless the caller passes ``device="cpu"``.
+
 Dense layers route their pre-activation through ``taps.tap(name, a, s)``:
 the KFAC input activations ``a`` are read off the tap records, and the
 output gradients ``g = dL/ds`` come from differentiating w.r.t. a zero
@@ -17,11 +22,16 @@ stored ``(out_features, in_features)`` as in ``torch.nn.Linear``.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from collections.abc import MutableMapping
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+
+from ..device import resolve_device
+from ..utils.pytree import named_leaves
 
 
 class TapCollector:
@@ -108,6 +118,60 @@ class Linear(nn.Module):
         return _tap(taps, self.name, x, s)
 
 
+def _pair(v) -> tuple:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class Conv2d(nn.Module):
+    """2-D convolution with ``torch.nn.Conv2d``'s weight layout
+    ``(out_ch, in_ch, kh, kw)`` and default init, NCHW input.
+
+    Computed as im2col: ``unfold`` gives the patches with features in
+    (c, kh, kw) order, the row-major order of the flattened weight, and the
+    convolution becomes ``patches @ W_flat.T``. The KFAC tap records
+    ``(a (B, L, c*kh*kw), s (B, L, out))`` with the L spatial positions as
+    the weight-sharing middle axis ('expand' / 'reduce'). Built on
+    ``cuda`` unless the caller passes ``device="cpu"``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, bias: bool = True, name: str = "conv",
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.use_bias = bias
+        self.name = name
+        kh, kw = self.kernel_size
+        bound = 1.0 / math.sqrt(in_channels * kh * kw)
+
+        def uniform(*shape):
+            u = torch.rand(*shape, generator=generator, dtype=torch.float64)
+            return (u * 2 * bound - bound).to(dtype)
+
+        self.weight = nn.Parameter(uniform(out_channels, in_channels, kh, kw))
+        self.bias = nn.Parameter(uniform(out_channels)) if bias else None
+        self.to(resolve_device(device))
+
+    def forward(self, x: torch.Tensor,
+                taps: Optional[TapCollector] = None) -> torch.Tensor:
+        B, _, H, W = x.shape
+        (kh, kw), (sh, sw), (ph, pw) = (self.kernel_size, self.stride,
+                                        self.padding)
+        Ho = (H + 2 * ph - kh) // sh + 1
+        Wo = (W + 2 * pw - kw) // sw + 1
+        a = F.unfold(x, (kh, kw), padding=(ph, pw),
+                     stride=(sh, sw)).transpose(1, 2)          # (B, L, ckk)
+        s = a @ self.weight.reshape(self.out_channels, -1).T   # (B, L, out)
+        if self.bias is not None:
+            s = s + self.bias
+        s = _tap(taps, self.name, a, s)
+        return s.transpose(1, 2).reshape(B, self.out_channels, Ho, Wo)
+
+
 class Identity(nn.Module):
     name = "identity"
 
@@ -191,3 +255,174 @@ def set_subtree(params: dict, path: tuple, value: dict) -> dict:
     for k in get_subtree(params, path):
         out[k] = value[k]
     return out
+
+
+class _TapModel(nn.Module):
+    """A model of dense layers applied functionally over a flat
+    ``{name: tensor}`` dict. Its last Linear's output is the model output,
+    so the closed-form last-layer Jacobian (features x I) is exact.
+    Subclasses draw their modules in ``_draw`` and name their last layer
+    in ``last_layer_path``."""
+
+    last_layer_closed_form = True
+
+    def _setup(self, device, dtype, generator) -> None:
+        self._dtype = dtype
+        self._device = resolve_device(device)
+        gen = generator if generator is not None else \
+            torch.Generator().manual_seed(0)
+        for attr, module in self._draw(gen).items():
+            setattr(self, attr, module.to(self._device))
+
+    def _draw(self, generator: torch.Generator) -> dict:
+        raise NotImplementedError
+
+    def params(self) -> dict:
+        """The model's own parameters as a flat dict in JAX tree order."""
+        return dict(named_leaves(dict(self.named_parameters())))
+
+    def init(self, generator: Optional[torch.Generator] = None) -> dict:
+        """Fresh parameters drawn from ``generator`` (seeded with 0 unless
+        given) as the constructor draws them; the model's own are left as
+        they are."""
+        gen = generator if generator is not None else \
+            torch.Generator().manual_seed(0)
+        fresh = {f"{attr}.{name}": p.detach().to(self._device)
+                 for attr, module in self._draw(gen).items()
+                 for name, p in module.named_parameters()}
+        return dict(named_leaves(fresh))
+
+    def apply(self, params: dict, x, taps: Optional[TapCollector] = None,
+              generator: Optional[torch.Generator] = None,
+              train: bool = False) -> torch.Tensor:
+        """Forward with the parameters taken from ``params``."""
+        return functional_call(self, params, (x,), {"taps": taps})
+
+    def features(self, params: dict, X) -> tuple:
+        """(the last layer's input activations, the model output), off the
+        tap records."""
+        taps = TapCollector()
+        f = self.apply(params, X, taps=taps)
+        last = _prefix(self.last_layer_path(params))
+        return [a for n, a, _ in taps.records if n == last][-1], f
+
+
+class MLP(_TapModel):
+    """Linear -> act -> ... -> Linear with a KFAC tap on every Linear;
+    parameters ``layers.<i>.weight`` / ``.bias``."""
+
+    def __init__(self, dims: Sequence[int], act: str = "tanh",
+                 bias: bool = True, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dims = tuple(dims)
+        self.act = activation_resolver(act)
+        self.use_bias = bias
+        self.n_outputs = self.dims[-1]
+        self._setup(device, dtype, generator)
+
+    def _draw(self, generator):
+        return {"layers": nn.ModuleList([
+            Linear(self.dims[i], self.dims[i + 1], bias=self.use_bias,
+                   name=f"layers.{i}", generator=generator, dtype=self._dtype)
+            for i in range(len(self.dims) - 1)])}
+
+    def forward(self, x: torch.Tensor,
+                taps: Optional[TapCollector] = None) -> torch.Tensor:
+        h = x
+        for i, layer in enumerate(self.layers):
+            h = layer(h, taps=taps)
+            if i < len(self.layers) - 1:
+                h = self.act(h)
+        return h
+
+    def tap_sites(self, params: Optional[dict] = None) -> list[dict]:
+        return [{"name": l.name, "param_path": ("layers", i),
+                 "has_bias": l.use_bias} for i, l in enumerate(self.layers)]
+
+    def last_layer_path(self, params: Optional[dict] = None) -> tuple:
+        return ("layers", len(self.layers) - 1)
+
+
+class CNN(_TapModel):
+    """Conv2d -> act -> ... -> flatten -> Linear with a KFAC tap on every
+    conv and on the head. ``conv_specs``: (in_ch, out_ch, kernel_size)
+    triples (stride 1, no padding); ``head_in`` / ``n_outputs`` size the
+    head; parameters ``convs.<i>.weight`` / ``.bias`` and ``head.*``."""
+
+    def __init__(self, conv_specs: Sequence[tuple], head_in: int,
+                 n_outputs: int, act: str = "relu", bias: bool = True,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv_specs = [tuple(c) for c in conv_specs]
+        self.head_in = head_in
+        self.n_outputs = n_outputs
+        self.act = activation_resolver(act)
+        self.use_bias = bias
+        self._setup(device, dtype, generator)
+
+    def _draw(self, generator):
+        convs = nn.ModuleList([
+            Conv2d(ci, co, k, bias=self.use_bias, name=f"convs.{i}",
+                   generator=generator, dtype=self._dtype,
+                   device=self._device)
+            for i, (ci, co, k) in enumerate(self.conv_specs)])
+        head = Linear(self.head_in, self.n_outputs, bias=self.use_bias,
+                      name="head", generator=generator, dtype=self._dtype)
+        return {"convs": convs, "head": head}
+
+    def forward(self, x: torch.Tensor,
+                taps: Optional[TapCollector] = None) -> torch.Tensor:
+        h = x
+        for conv in self.convs:
+            h = self.act(conv(h, taps=taps))
+        return self.head(h.reshape(h.shape[0], -1), taps=taps)
+
+    def tap_sites(self, params: Optional[dict] = None) -> list[dict]:
+        sites = [{"name": c.name, "param_path": ("convs", i),
+                  "has_bias": c.use_bias} for i, c in enumerate(self.convs)]
+        return sites + [{"name": "head", "param_path": ("head",),
+                         "has_bias": self.head.use_bias}]
+
+    def last_layer_path(self, params: Optional[dict] = None) -> tuple:
+        return ("head",)
+
+
+class DictInputModel(nn.Module):
+    """Adapter that lets any model take ``MutableMapping`` batches: the
+    tensor under ``dict_key_x`` is the wrapped model's input, the other
+    keys (the targets) ride along. Plain tensors pass through. Parameters
+    are the wrapped model's, under its names."""
+
+    def __init__(self, base, dict_key_x: str = "input_ids"):
+        super().__init__()
+        self.base = base
+        self.dict_key_x = dict_key_x
+        self.n_outputs = getattr(base, "n_outputs", None)
+        self.last_layer_closed_form = getattr(base, "last_layer_closed_form",
+                                              False)
+
+    def _x(self, X):
+        return X[self.dict_key_x] if isinstance(X, MutableMapping) else X
+
+    def params(self) -> dict:
+        return self.base.params()
+
+    def init(self, generator: Optional[torch.Generator] = None) -> dict:
+        return self.base.init(generator)
+
+    def apply(self, params: dict, X, taps: Optional[TapCollector] = None,
+              generator: Optional[torch.Generator] = None,
+              train: bool = False) -> torch.Tensor:
+        return self.base.apply(params, self._x(X), taps=taps,
+                               generator=generator, train=train)
+
+    def features(self, params: dict, X) -> tuple:
+        return self.base.features(params, self._x(X))
+
+    def tap_sites(self, params: Optional[dict] = None) -> list[dict]:
+        return self.base.tap_sites(params)
+
+    def last_layer_path(self, params: Optional[dict] = None) -> tuple:
+        return self.base.last_layer_path(params)

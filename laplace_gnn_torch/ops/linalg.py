@@ -25,6 +25,43 @@ def symeig(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.nan_to_num(clip_min0(L)), torch.nan_to_num(W)
 
 
+def safe_symeig(M: torch.Tensor, jitter: float = 0.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`symeig` of ``M + jitter I``, the jitter taken off the
+    eigenvalues again (and clamped at 0)."""
+    if jitter:
+        eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
+        L, W = symeig(M + jitter * eye)
+        return clip_min0(L - jitter), W
+    return symeig(M)
+
+
+def kron(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Kronecker product A (x) B."""
+    return torch.kron(A, B)
+
+
+def block_diag(blocks) -> torch.Tensor:
+    """Dense block-diagonal matrix of ``blocks``."""
+    return torch.block_diag(*blocks)
+
+
+def diagonal_add_scalar(X: torch.Tensor, value) -> torch.Tensor:
+    """``X + value I`` (a new tensor)."""
+    return X + value * torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
+
+
+def cho_solve_psd(M: torch.Tensor, B: torch.Tensor,
+                  jitter: float = 0.0) -> torch.Tensor:
+    """``M^{-1} B`` for a symmetric positive (semi)definite ``M``, through
+    the Cholesky factor of ``M + jitter I``."""
+    L = torch.linalg.cholesky(diagonal_add_scalar(M, jitter) if jitter
+                              else M)
+    if B.dim() == 1:
+        return torch.cholesky_solve(B[:, None], L)[:, 0]
+    return torch.cholesky_solve(B, L)
+
+
 def _same_size_groups(mats) -> dict:
     groups: dict = {}
     for i, m in enumerate(mats):

@@ -248,8 +248,9 @@ def test_laplace_api_rules():
     _, tm, _, tp = _pair("gcn")
     with pytest.raises(NotImplementedError, match=r"item 14\(c\)"):
         Laplace(tm, tp, "classification", "all", "lowrank")
-    with pytest.raises(NotImplementedError, match=r"item 14\(a\)"):
-        Laplace(tm, tp, "classification", "last_layer", "kron")
+    # the default key is last-layer Kron
+    assert type(Laplace(tm, tp, "classification")).__name__ == \
+        "KronLLLaplace"
     with pytest.raises(ValueError):
         Laplace(tm, tp, "classification", "all", "nope")
     la = Laplace(tm, tp, "classification", "all", "kron")

@@ -275,16 +275,22 @@ def test_metrics_helpers_match_jax():
 def test_dispatch_keys():
     _, tla, _ = _fits("gcn", "diag")
     model, params = tla.model, tla.params
-    assert set(TD.PORTED) == {("all", "kron"), ("all", "full"),
-                              ("all", "diag")}
+    assert set(TD.PORTED) == {
+        ("all", "kron"), ("all", "full"), ("all", "diag"), ("all", "gp"),
+        ("last_layer", "kron"), ("last_layer", "full"),
+        ("last_layer", "diag"), ("last_layer", "gp"),
+        ("subnetwork", "full"), ("subnetwork", "diag")}
+    extra = {"gp": {"n_subset": 4}}
     for key, cls in TD.PORTED.items():
-        assert type(TD.Laplace(model, params, "classification",
-                               *key)) is cls
+        kw = dict(extra.get(key[1], {}))
+        if key[0] == "subnetwork":
+            kw["subnetwork_indices"] = [0, 3]
+        assert type(TD.Laplace(model, params, "classification", *key,
+                               **kw)) is cls
+    assert type(TD.Laplace(model, params, "classification")) is \
+        TD.PORTED[("last_layer", "kron")]
     with pytest.raises(NotImplementedError, match=r"item 14\(c\)"):
         TD.Laplace(model, params, "classification", "all", "lowrank")
-    for key in (("last_layer", "kron"), ("all", "gp"),
-                ("subnetwork", "diag")):
-        with pytest.raises(NotImplementedError, match=r"item 14\(a\)"):
-            TD.Laplace(model, params, "classification", *key)
+    assert set(TD.WAITING) == {("all", "lowrank")}
     with pytest.raises(ValueError, match="Subnetwork"):
         TD.Laplace(model, params, "classification", "subnetwork", "kron")

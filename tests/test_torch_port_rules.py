@@ -105,6 +105,21 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
     with pytest.raises(RuntimeError):
         marglik_optimization(m, m.params(), np.arange(5), np.zeros(5, int),
                              n_epochs=1, verbose=False)
+    from laplace_gnn_torch.laplace.marglik import marglik_training
+    from laplace_gnn_torch.nn import CNN, MLP, Conv2d
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MLP([4, 8, 3])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CNN([(1, 2, 3)], 2 * 4 * 4, 3)
+    mlp = MLP([4, 8, 3], device="cpu")
+    CNN([(1, 2, 3)], 2 * 4 * 4, 3, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Conv2d(1, 2, 3)
+    Conv2d(1, 2, 3, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        marglik_training(mlp, mlp.params(), [(torch.zeros(2, 4),
+                                              torch.zeros(2, dtype=int))],
+                         n_epochs=1)
     from laplace_gnn_torch.training.experiment import main
     from laplace_gnn_torch.utils.data import ArrayLoader
     with pytest.raises(RuntimeError, match="device='cpu'"):
