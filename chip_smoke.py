@@ -137,8 +137,23 @@ Phases, each fatal:
      probit on 256). Each part with its time, peak memory and launches;
      then every flavour and ``marglik_training`` on a small graph, and
      Kron on a small CNN, against the float64 CPU path;
- 15. hold ``core_spmm`` against its plain version, untimed, at every
-     (N, d, adjacency mode, t dtype, transpose) that phases 2-14 launched
+ 15. the curvature engine on the phase-3 graph and learned adjacency:
+     on the composed STE-GCN (``fused=False``, hidden 64, P = 92,231) a
+     GGN matvec and 10-column matmat, a Hessian and an EF matvec,
+     LowRank Laplace of rank 10 (fit, log marglik, 100 steps of marglik
+     tuning), the Lanczos spectral density (ncv 64), Hutchinson's trace
+     and diagonal (16 probes), 20 CG iterations on GGN + prior, 20 LSMR
+     iterations (damp 1) on the Jacobian and one activation-Hessian
+     matvec at the last tap site (N x C = 18,956 dims); LowRank at hidden
+     16 (P = 23,063): the probit predictive on 1000 nodes and 100 samples
+     (the dense covariance); on the fused STE-GCN, LowRank's fit must
+     raise, and the transposed-Jacobian matvec, the Kron fit and the KFAC
+     inverse (plain, heuristic, exact; one matvec each) run through
+     ``core_spmm``. Each part with its time, peak memory and launches;
+     then the same parts on a small graph against the float64 CPU path
+     (1e-4 relative for the composed parts, 1e-2 through the kernel);
+ 16. hold ``core_spmm`` against its plain version, untimed, at every
+     (N, d, adjacency mode, t dtype, transpose) that phases 2-15 launched
      and no earlier check covered (each launch's shape is recorded as it
      is made), so no plan that the run chose goes unchecked; it stays the
      last phase.
@@ -2454,6 +2469,313 @@ def phase_library_small(torch, np, devices=None):
     return out
 
 
+# phase 15: the curvature engine at Cora's width
+ENGINE_RANK = 10           # LowRank's Lanczos depth
+ENGINE_COLS = 10           # GGN matmat columns
+ENGINE_NCV = 64            # spectral density's Lanczos depth
+ENGINE_PROBES = 16         # Hutchinson probes
+ENGINE_ITERS = 20          # CG and LSMR iterations
+ENGINE_DAMP = 1.0          # LSMR's damp, the KFAC inverse's damping
+ENGINE_SAMPLES = 100       # LowRank posterior samples (hidden 16)
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| in float64 on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_curvature_engine(torch, np, state, kernels, card):
+    """The curvature engine on the phase-3 graph and learned adjacency:
+    on the composed STE-GCN (``fused=False``) at hidden 64 (P = 92,231)
+    a GGN matvec and a 10-column matmat, a Hessian and an EF matvec,
+    LowRank Laplace of rank 10 (fit, log marglik, 100 steps of marglik
+    tuning), the Lanczos spectral density with ncv 64, Hutchinson's trace
+    and diagonal with 16 probes, 20 CG iterations on GGN + prior, 20 LSMR
+    iterations (damp 1) on the Jacobian, and one activation-Hessian matvec
+    at the last tap site (N x C = 18,956 dims); LowRank at hidden 16
+    (P = 23,063): the probit predictive on 1000 nodes and 100 samples,
+    which form the dense covariance; on the fused STE-GCN (the phase-3
+    model) LowRank's fit must raise (no forward-mode rule in the fused
+    op), and the transposed-Jacobian matvec, the Kron fit and the KFAC
+    inverse (plain, heuristic, exact) with one matvec each run through
+    ``core_spmm``. Each part with its time, peak memory and launches."""
+    from laplace_gnn_torch import curvature as C
+    from laplace_gnn_torch.curvature.inverse import cg
+    from laplace_gnn_torch.laplace.dispatch import Laplace
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.utils.data import ArrayLoader
+    model, params, y, perm = state
+    dev = params["adj"].device
+    params = {k: v.detach() for k, v in params.items()}
+    tr = perm[:N_TRAIN]
+    te = perm[N_TRAIN + N_VAL:N_TRAIN + N_VAL + N_TEST]
+    idx = torch.as_tensor(tr, device=dev)
+    yy = torch.as_tensor(y[tr], device=dev)
+    train = ArrayLoader(tr, y[tr], device=dev)
+    data = [(idx, yy)]
+    bk = {"backend_kwargs": {"jac_chunk_size": JAC_CHUNK}}
+    zero = {"core_spmm": 0, "matmul": 0}
+    on = {"core_spmm": None, "matmul": 0}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {}
+
+    def composed_model(hidden):
+        return STEGCN(N_FEAT, hidden, N_CLASS, 2, model.X, model.init_adj,
+                      dropout_p=0.5, fused=False, symmetric=True, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+
+    # -- composed STE-GCN, hidden 64 --------------------------------------
+    label = f"composed STE-GCN h{HIDDEN}"
+    part, parts = run_parts(torch, kernels, card, label)
+    composed = composed_model(HIDDEN)
+    be = C.GGNBackend(composed, params, "classification")
+    P = be.n_params
+    v = torch.randn(P, generator=gen, device=dev)
+    V = torch.randn(P, ENGINE_COLS, generator=gen, device=dev)
+    ggn = C.GGNOperator(be.model_fn, "classification", be.w, data)
+    gv = part("ggn_matvec", lambda: ggn.matvec(v), zero)
+    GV = part(f"ggn_matmat_{ENGINE_COLS}", lambda: ggn.matmat(V), zero)
+    col_err = _rel(GV[:, 1], ggn.matvec(V[:, 1]))
+    hv = part("hessian_matvec", lambda: C.HessianOperator(
+        be.model_fn, "classification", be.w, data).matvec(v), zero)
+    ev = part("ef_matvec", lambda: C.EFOperator(
+        be.model_fn, "classification", be.w, data).matvec(v), zero)
+    _finite(torch, label, gv, GV, hv, ev)
+    if col_err > 1e-4 or float(v @ gv) < 0 or float(v @ ev) < 0:
+        raise AssertionError(f"{label}: matmat column vs matvec {col_err}, "
+                             f"v.Gv {float(v @ gv)}, v.Fv {float(v @ ev)}")
+
+    la = part(f"lowrank_fit_rank{ENGINE_RANK}", lambda: _fitted(Laplace(
+        composed, params, "classification", "all", "lowrank",
+        rank=ENGINE_RANK), train), zero)
+    lml = float(part("lowrank_log_marglik", la.log_marginal_likelihood,
+                     zero))
+    part("lowrank_marglik_tuning_scalar_100", lambda: (
+        la.optimize_prior_precision(method="marglik", n_steps=100)), zero)
+    evals = la.H[1]
+    # a Ritz pair's Rayleigh quotient is its Ritz value
+    ray_err = abs(float(la.V[:, 0] @ ggn.matvec(la.V[:, 0]))
+                  - float(evals[0])) / float(evals[0])
+    _finite(torch, label, lml, evals, la.prior_precision)
+    if evals.shape[0] < 1 or not bool((evals[:-1] >= evals[1:]).all()) \
+            or ray_err > 1e-3:
+        raise AssertionError(f"{label} LowRank: eigenvalues "
+                             f"{evals.tolist()}, Rayleigh error {ray_err}")
+
+    grid, density = part(f"lanczos_approximate_spectrum_ncv{ENGINE_NCV}",
+                         lambda: C.lanczos_approximate_spectrum(
+                             ggn, ncv=ENGINE_NCV, seed=15), zero)
+    mass = float(np.trapezoid(density, grid))
+    tr_est = part(f"hutchinson_trace_{ENGINE_PROBES}", lambda: (
+        C.hutchinson_trace(ggn, ENGINE_PROBES, seed=15)), zero)
+    diag_est = part(f"hutchinson_diag_{ENGINE_PROBES}", lambda: (
+        C.hutchinson_diag(ggn, ENGINE_PROBES, seed=15)), zero)
+    # Rademacher probes: sum_i v_i (A v)_i is v^T A v, so the diagonal's
+    # sum is the trace estimate of the same probes
+    sum_err = abs(float(diag_est.sum()) - float(tr_est)) / float(tr_est)
+    if not (np.all(np.isfinite(density)) and abs(mass - 1) < 0.25
+            and sum_err < 1e-4):
+        raise AssertionError(f"{label}: density mass {mass}, diagonal sum "
+                             f"vs trace {sum_err}")
+
+    shifted = C.DiagShiftOperator(ggn, torch.ones(P, device=dev))
+    x, k = part(f"cg_{ENGINE_ITERS}", lambda: cg(
+        shifted.matvec, v, tol=0.0, maxiter=ENGINE_ITERS), zero)
+    cg_res = _rel(shifted.matvec(x), v)
+    J = C.JacobianOperator(be.model_fn, be.w, data)
+    u = torch.randn(J.shape[0], generator=gen, device=dev)
+    xl, kl = part(f"lsmr_jacobian_{ENGINE_ITERS}", lambda: C.lsmr(
+        J.matvec, J.rmatvec, u, damp=ENGINE_DAMP, atol=0.0,
+        maxiter=ENGINE_ITERS), zero)
+    lsmr_res = float(torch.sqrt(((J.matvec(xl) - u) ** 2).sum()
+                                + ENGINE_DAMP ** 2 * (xl ** 2).sum())
+                     / u.norm())
+    _finite(torch, label, x, xl)
+    if k != ENGINE_ITERS or kl != ENGINE_ITERS or cg_res >= 1 \
+            or lsmr_res >= 1:
+        raise AssertionError(f"{label}: CG {k} iterations, residual "
+                             f"{cg_res}; LSMR {kl}, residual {lsmr_res}")
+
+    site = f"convs.{composed.num_layers - 1}"
+    ah = C.ActivationHessianOperator(composed, params, "classification",
+                                     site, idx, yy)
+    w = torch.randn(ah.shape[1], generator=gen, device=dev)
+    ahv = part("activation_hessian_matvec", lambda: ah.matvec(w), zero)
+    _finite(torch, label, ahv)
+    if ah.shape != (N_NODES * N_CLASS,) * 2 or float(w @ ahv) < 0:
+        raise AssertionError(f"{label}: activation Hessian {ah.shape}, "
+                             f"w.Hw {float(w @ ahv)}")
+    print(f"{label}: P = {P}; LowRank eigenvalues {evals.tolist()}, log "
+          f"marglik {lml:.4f}, tuned prior precision "
+          f"{la.prior_precision.tolist()}; spectrum on "
+          f"[{grid[0]:.4g}, {grid[-1]:.4g}], mass {mass:.4f}; Hutchinson "
+          f"trace {float(tr_est):.6g}; CG residual {cg_res:.3e}; LSMR "
+          f"damped residual {lsmr_res:.4f}; activation Hessian {site} "
+          f"{ah.shape[0]} dims  [{card}]", flush=True)
+    out[label] = {"parts": parts, "n_params": P, "lowrank_evals":
+                  evals.tolist(), "log_marglik": lml, "spectrum_mass": mass,
+                  "hutchinson_trace": float(tr_est), "cg_residual": cg_res,
+                  "lsmr_residual": lsmr_res}
+    del la, ggn, shifted, J, GV, V, ah
+    torch.cuda.empty_cache()
+
+    # -- composed STE-GCN, hidden 16: LowRank's dense covariance ------------
+    label = f"composed STE-GCN h{FULL_HIDDEN}"
+    part, parts = run_parts(torch, kernels, card, label)
+    small = composed_model(FULL_HIDDEN)
+    small_params = {**small.params(), "adj": params["adj"]}
+    la = part(f"lowrank_fit_rank{ENGINE_RANK}", lambda: _fitted(Laplace(
+        small, small_params, "classification", "all", "lowrank",
+        rank=ENGINE_RANK, **bk), train), zero)
+    probs = part(f"lowrank_probit_{N_TEST}", lambda: la(
+        torch.as_tensor(te, device=dev), link_approx="probit"), zero)
+    _check_probs(np, probs, N_TEST)
+    s = part(f"lowrank_sample_{ENGINE_SAMPLES}", lambda: la.sample(
+        ENGINE_SAMPLES), zero)
+    _finite(torch, label, s)
+    if s.shape != (ENGINE_SAMPLES, la.n_params):
+        raise AssertionError(f"{label} samples: {tuple(s.shape)}")
+    print(f"{label}: P = {la.n_params}, dense covariance "
+          f"{la.n_params} x {la.n_params} f32  [{card}]", flush=True)
+    out[label] = {"parts": parts, "n_params": la.n_params}
+    del la, s, probs
+    torch.cuda.empty_cache()
+
+    # -- fused STE-GCN, hidden 64: the reverse-mode parts ------------------
+    label = f"fused STE-GCN h{HIDDEN}"
+    part, parts = run_parts(torch, kernels, card, label)
+    try:
+        Laplace(model, params, "classification", "all", "lowrank",
+                rank=ENGINE_RANK).fit(train)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError(f"{label}: LowRank's fit ran forward mode "
+                             "through the fused op")
+    bf = C.GGNBackend(model, params, "classification")
+    JT = C.TransposedJacobianOperator(bf.model_fn, bf.w, data)
+    u = torch.randn(JT.shape[1], generator=gen, device=dev)
+    jtu = part("transposed_jacobian_matvec", lambda: JT.matvec(u), on)
+    ref = C.TransposedJacobianOperator(be.model_fn, be.w, data).matvec(u)
+    jt_err = _rel(jtu, ref)
+    kron = part("kron_fit", lambda: C.compute_kfac_factors(
+        model, params, idx, yy, "classification", N=N_TRAIN), on)
+    inv_dots = {}
+    for method in ("plain", "heuristic", "exact"):
+        inv = part(f"kfac_inverse_{method}", lambda: C.KFACInverseOperator(
+            kron, damping=ENGINE_DAMP, damping_method=method), zero)
+        x = part(f"kfac_inverse_{method}_matvec", lambda: inv.matvec(v),
+                 zero)
+        _finite(torch, f"{label} {method}", x)
+        inv_dots[method] = float(v @ x)
+    # the kernel rounds its operands to bf16 (the forward's output is off
+    # the composed path's by ~1.5e-3 at this width, phase 3), and a
+    # pre-activation that changes sign flips its ReLU mask in the pullback
+    if jt_err > 5e-2 or min(inv_dots.values()) <= 0:
+        raise AssertionError(f"{label}: J^T u vs the composed path "
+                             f"{jt_err}; v.K^-1 v {inv_dots}")
+    print(f"{label}: J^T u vs the composed path rel {jt_err:.3e} (held at "
+          f"5e-2: bf16 operands and ReLU masks); v.K^-1 v {inv_dots}; "
+          f"LowRank raised NotImplementedError  [{card}]", flush=True)
+    out[label] = {"parts": parts, "jt_rel_err": jt_err,
+                  "kfac_inverse_vKv": inv_dots}
+    del kron, JT
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_curvature_engine_small(torch, np, devices=None):
+    """The curvature engine on a small graph (N = 96), the card in float32
+    against the CPU in float64 (which the CPU tests hold to the JAX
+    package), with the same draws: the composed STE-GCN's GGN, Hessian and
+    EF matvecs, a GGN matmat, Hutchinson's trace, CG and LSMR iterates, an
+    activation-Hessian matvec and LowRank's eigenvalues, log marglik and
+    probit probabilities, held at 1e-4 relative; the fused STE-GCN's
+    transposed-Jacobian matvec and KFAC-inverse matvecs at 1e-2 (the
+    kernel rounds its operands to bf16). ``devices`` maps "card" and "ref"
+    to (device, dtype)."""
+    from laplace_gnn_torch import curvature as C
+    from laplace_gnn_torch.curvature.inverse import cg
+    from laplace_gnn_torch.laplace.dispatch import Laplace
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.utils.data import ArrayLoader
+    rng = np.random.default_rng(15)
+    n, f, hid = 96, 24, 16
+    X = rng.standard_normal((n, f))
+    a = (rng.random((n, n)) < 0.08).astype(float)
+    adj = np.minimum(a + a.T, 1.0)
+    np.fill_diagonal(adj, 0.0)
+    y = rng.integers(0, N_CLASS, n)
+    tr, te = np.arange(40), np.arange(40, n)
+    devices = devices or {"card": ("cuda", torch.float32),
+                          "ref": ("cpu", torch.float64)}
+    vals = {}
+    for key, (dev, dt) in devices.items():
+        def model(fused):
+            return STEGCN(f, hid, N_CLASS, 2, X, adj, dropout_p=0.0,
+                          fused=fused, symmetric=True, device=dev, dtype=dt,
+                          generator=torch.Generator().manual_seed(0))
+
+        def draw(seed, *shape):
+            g = torch.Generator().manual_seed(seed)
+            return torch.randn(*shape, generator=g,
+                               dtype=torch.float64).to(dev, dt)
+
+        composed, fused = model(False), model(True)
+        params = {k: p.detach() for k, p in composed.params().items()}
+        idx = torch.as_tensor(tr, device=dev)
+        yy = torch.as_tensor(y[tr], device=dev)
+        data = [(idx, yy)]
+        be = C.GGNBackend(composed, params, "classification")
+        P = be.n_params
+        v, V = draw(1, P), draw(2, P, 3)
+        ggn = C.GGNOperator(be.model_fn, "classification", be.w, data)
+        J = C.JacobianOperator(be.model_fn, be.w, data)
+        u = draw(3, J.shape[0])
+        ah = C.ActivationHessianOperator(composed, params, "classification",
+                                         "convs.1", idx, yy)
+        la = Laplace(composed, params, "classification", "all", "lowrank",
+                     rank=5, generator=torch.Generator().manual_seed(0))
+        la.fit(ArrayLoader(tr, y[tr], device=dev))
+        r = {"ggn": ggn.matvec(v), "ggn_matmat": ggn.matmat(V),
+             "hessian": C.HessianOperator(be.model_fn, "classification",
+                                          be.w, data).matvec(v),
+             "ef": C.EFOperator(be.model_fn, "classification", be.w,
+                                data).matvec(v),
+             "hutchinson_trace": C.hutchinson_trace(ggn, 8, seed=4),
+             "cg": cg(C.DiagShiftOperator(ggn, 1.0).matvec, v, tol=0.0,
+                      maxiter=10)[0],
+             "lsmr": C.lsmr(J.matvec, J.rmatvec, u, damp=ENGINE_DAMP,
+                            atol=0.0, maxiter=10)[0],
+             "activation_hessian": ah.matvec(draw(5, ah.shape[1])),
+             "lowrank_evals": la.H[1],
+             "lowrank_log_marglik": la.log_marginal_likelihood(),
+             "lowrank_probit": la(torch.as_tensor(te, device=dev),
+                                  link_approx="probit")}
+        bf = C.GGNBackend(fused, params, "classification")
+        r["fused:transposed_jacobian"] = C.TransposedJacobianOperator(
+            bf.model_fn, bf.w, data).matvec(u)
+        kron = C.compute_kfac_factors(fused, params, idx, yy,
+                                      "classification", N=len(tr))
+        for method in ("plain", "heuristic", "exact"):
+            r[f"fused:kfac_inverse_{method}"] = C.KFACInverseOperator(
+                kron, damping=ENGINE_DAMP, damping_method=method).matvec(v)
+        vals[key] = r
+    errs = {name: _rel(vals["card"][name], ref)
+            for name, ref in vals["ref"].items()}
+    bad = {name: e for name, e in errs.items()
+           if e > (1e-2 if name.startswith("fused:") else 1e-4)
+           or not math.isfinite(e)}
+    for name, e in errs.items():
+        print(f"small-graph {name}: card f32 vs CPU f64 rel {e:.2e} (held "
+              f"at {1e-2 if name.startswith('fused:') else 1e-4:g})",
+              flush=True)
+    if bad:
+        raise AssertionError(f"small-graph curvature engine: {bad}")
+    return {"errors": errs}
+
+
 def build_kernels(cuda_build, out_dir, names=None):
     """Phase 1: build the named sources (default all), one nvcc each, all at
     once; each ptxas report goes to ``build_<source>.log``."""
@@ -2585,9 +2907,12 @@ def main(argv=None) -> int:
     library = phase("14", phase_library, torch, np, stegcn_state, counted,
                     card)
     library_small = phase("14", phase_library_small, torch, np)
+    engine = phase("15", phase_curvature_engine, torch, np, stegcn_state,
+                   counted, card)
+    engine_small = phase("15", phase_curvature_engine_small, torch, np)
     del stegcn_state
     torch.cuda.empty_cache()
-    launched = phase("15", phase_core_launched, torch, fs)
+    launched = phase("16", phase_core_launched, torch, fs)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -2644,6 +2969,8 @@ def main(argv=None) -> int:
                    "laplace_flavors": flavors,
                    "laplace_flavors_small": flavors_small,
                    "library": library, "library_small": library_small,
+                   "curvature_engine": engine,
+                   "curvature_engine_small": engine_small,
                    "core_spmm_launched": launched,
                    "phase_seconds": seconds,
                    "kernels": kernels}, f, indent=1, default=str)

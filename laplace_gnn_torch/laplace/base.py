@@ -38,9 +38,11 @@ from .predictive import glm_classification_predictive
 
 
 def _map_tensors(fn, tree):
-    """``fn`` on a tensor, or on each tensor of nested lists."""
+    """``fn`` on a tensor, or on each tensor of nested lists and dicts."""
     if isinstance(tree, (list, tuple)):
         return [_map_tensors(fn, t) for t in tree]
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, t) for k, t in tree.items()}
     return fn(tree)
 
 

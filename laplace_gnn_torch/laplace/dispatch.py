@@ -1,23 +1,23 @@
 """``Laplace()``: maps (subset_of_weights, hessian_structure) to a flavour
 class (counterpart of ``laplace_gnn_tpu/laplace/dispatch.py``).
 
-Every flavour of the JAX package is ported but ``("all", "lowrank")``,
-which raises ``NotImplementedError`` naming its ROADMAP item."""
+Every flavour of the JAX package is ported; ``WAITING`` (keys still to
+port, each raising ``NotImplementedError`` naming its ROADMAP item) is
+empty."""
 
 from __future__ import annotations
 
-from .flavors import DiagLaplace, FullLaplace, KronLaplace
+from .flavors import DiagLaplace, FullLaplace, KronLaplace, LowRankLaplace
 from .functional import FunctionalLaplace, FunctionalLLLaplace
 from .lllaplace import DiagLLLaplace, FullLLLaplace, KronLLLaplace
 from .subnet import DiagSubnetLaplace, FullSubnetLaplace
 
 PORTED = {cls._key: cls for cls in (
-    KronLaplace, FullLaplace, DiagLaplace, FullLLLaplace, KronLLLaplace,
-    DiagLLLaplace, FullSubnetLaplace, DiagSubnetLaplace, FunctionalLaplace,
-    FunctionalLLLaplace)}
+    KronLaplace, FullLaplace, DiagLaplace, LowRankLaplace, FullLLLaplace,
+    KronLLLaplace, DiagLLLaplace, FullSubnetLaplace, DiagSubnetLaplace,
+    FunctionalLaplace, FunctionalLLLaplace)}
 
-# LowRank waits with the curvature engine's Lanczos and GGN operator
-WAITING = {("all", "lowrank"): "14(c)"}
+WAITING: dict = {}
 
 
 def Laplace(model, params, likelihood: str,

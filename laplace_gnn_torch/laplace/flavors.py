@@ -1,7 +1,6 @@
 """Parametric Laplace flavours (counterpart of
-``laplace_gnn_tpu/laplace/flavors.py``): full, Kronecker-factored and
-diagonal posterior precision. ``LowRankLaplace`` waits with the curvature
-engine (ROADMAP Queue 1 item 14(c)).
+``laplace_gnn_tpu/laplace/flavors.py``): full, Kronecker-factored,
+low-rank and diagonal posterior precision.
 
 Each flavour's ``sample`` draws its standard normals through
 ``ops/linalg.py::_standard_normals``, which a test replaces to feed both
@@ -13,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from ..curvature.operators import GGNOperator
+from ..curvature.spectrum import lanczos_eigh
 from ..ops import linalg
 from ..utils.data import dataset_size
 from .base import ParametricLaplace
@@ -194,6 +195,118 @@ class KronLaplace(ParametricLaplace):
     def _load_H(self, H) -> None:
         self.H_facs = Kron(H)
         self.H = self.H_facs.decompose(damping=self.damping)
+
+
+class LowRankLaplace(ParametricLaplace):
+    """Low-rank GGN eigendecomposition plus the prior: H ~ V diag(l) V^T
+    from Lanczos on the matrix-free GGN operator; the Woodbury identity
+    gives the covariance. The Lanczos start vector is drawn with a seed
+    taken from the Laplace object's generator, where JAX splits its key.
+
+    The GGN products are forward-over-reverse, so, as in JAX, the fit
+    raises on a model whose fused aggregation has no forward-mode rule
+    (``STEGCN(fused=True)``). ``posterior_covariance``,
+    ``functional_variance`` and ``sample`` form the dense P x P
+    covariance, as JAX's do."""
+
+    _key = ("all", "lowrank")
+
+    def __init__(self, model, params, likelihood, rank: int = 10, **kwargs):
+        self.rank = rank
+        super().__init__(model, params, likelihood, **kwargs)
+
+    def _init_H(self) -> None:
+        self.H = None
+
+    def fit(self, train_loader, override: bool = True) -> None:
+        if not override:
+            raise ValueError("LowRank LA does not support updating.")
+        self.mean = self.backend.mean_vector()
+        data = [self._unpack_batch(d) for d in train_loader]
+        N = dataset_size(train_loader, dict_key_y=self.dict_key_y)
+        op = GGNOperator(self.backend.model_fn, self.likelihood,
+                         self.backend.w, data)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=self.generator,
+                                 device=self.generator.device))
+        evals, evecs = lanczos_eigh(op, k=min(self.rank, self.n_params),
+                                    seed=seed)
+        order = torch.argsort(evals, descending=True)
+        evals, evecs = evals[order].detach(), evecs[:, order].detach()
+        keep = evals > 1e-10
+        self.H = (evecs[:, keep], evals[keep] * self.factor_correction())
+
+        with torch.no_grad():
+            self.loss = sum(self.backend.loss(X, y) for X, y in data)
+            self.n_outputs = self.backend.model_fn(
+                self.backend.w, data[0][0]).shape[-1]
+        self.n_data = N
+
+    def factor_correction(self):
+        # GGNOperator works on the raw sum-loss; apply the likelihood factor
+        return self.backend.factor if self.likelihood == "regression" else 1.0
+
+    @property
+    def V(self) -> torch.Tensor:
+        return self.H[0]
+
+    @property
+    def Kinv(self) -> torch.Tensor:
+        """(diag(l)^-1 + V^T P0^-1 V)^-1, the Woodbury core."""
+        V, l = self.H
+        inner = torch.diag(1.0 / (l * self._H_factor)) \
+            + V.T @ (V / self.prior_precision_diag[:, None])
+        return torch.linalg.inv(inner)
+
+    @property
+    def posterior_precision(self):
+        self._check_H_init()
+        V, l = self.H
+        return V, l * self._H_factor, self.prior_precision_diag
+
+    @property
+    def posterior_covariance(self) -> torch.Tensor:
+        """P0^-1 - P0^-1 V Kinv V^T P0^-1 (Woodbury)."""
+        V, l, p0 = self.posterior_precision
+        A = V / p0[:, None]
+        return torch.diag(1.0 / p0) - A @ self.Kinv @ A.T
+
+    @property
+    def log_det_posterior_precision(self) -> torch.Tensor:
+        V, l, p0 = self.posterior_precision
+        inner = torch.eye(V.shape[1], dtype=V.dtype, device=V.device) \
+            + (V * l[None, :]).T @ (V / p0[:, None])
+        return torch.linalg.slogdet(inner)[1] + torch.sum(torch.log(p0))
+
+    def square_norm(self, value):
+        delta = value - self.mean
+        V, l, p0 = self.posterior_precision
+        return delta @ (p0 * delta) + (delta @ V) @ ((delta @ V) * l)
+
+    def functional_variance(self, Js):
+        return torch.einsum("ncp,pq,nkq->nck", Js, self.posterior_covariance,
+                            Js)
+
+    def functional_covariance(self, Js):
+        n, c, p = Js.shape
+        Js = Js.reshape(n * c, p)
+        return Js @ self.posterior_covariance @ Js.T
+
+    def sample(self, n_samples: int = 100,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        generator = generator if generator is not None else self.generator
+        cov = self.posterior_covariance
+        scale = torch.linalg.cholesky(
+            cov + 1e-10 * torch.eye(cov.shape[0], dtype=cov.dtype,
+                                    device=cov.device))
+        eps = linalg._standard_normals((n_samples, self.n_params), generator,
+                                       self.mean.dtype, self.mean.device)
+        return self.mean[None, :] + eps @ scale.T
+
+    def _H_for_state(self):
+        return {"V": self.H[0], "l": self.H[1]}
+
+    def _load_H(self, H) -> None:
+        self.H = (H["V"], H["l"])
 
 
 class DiagLaplace(ParametricLaplace):

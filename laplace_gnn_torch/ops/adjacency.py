@@ -48,7 +48,11 @@ def fill_diagonal_any(adj, value: float):
 
 class _BinarizeSTE(torch.autograd.Function):
     """Hard threshold forward; the cotangent passes straight through,
-    optionally masked and/or sign-taken (reference BinarizeSTE)."""
+    optionally masked and/or sign-taken (reference BinarizeSTE). Its
+    vmap rule is generated, so a vmapped forward (``matmat`` of a GGN
+    operator) runs through it."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(x, threshold, mask, sign_grad):

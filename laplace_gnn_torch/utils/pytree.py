@@ -109,3 +109,51 @@ def params_to_numpy(params: dict):
         return node
 
     return listify(root)
+
+
+def tree_unflattener(params: dict) -> Callable[[torch.Tensor], dict]:
+    """A function mapping a flat vector (in JAX tree order) back to a dict
+    shaped like ``params``."""
+    names = [n for n, _ in named_leaves(params)]
+    shapes = [params[n].shape for n in names]
+    sizes = [int(params[n].numel()) for n in names]
+
+    def unflatten(vec: torch.Tensor) -> dict:
+        return {n: p.reshape(s) for n, p, s in
+                zip(names, torch.split(vec, sizes), shapes)}
+
+    return unflatten
+
+
+def tree_random_normal(generator: torch.Generator, params: dict,
+                       dtype=None) -> dict:
+    """A dict of iid standard normals shaped like ``params``, drawn leaf by
+    leaf in JAX tree order from ``generator`` (JAX splits its key, one per
+    leaf)."""
+    return {n: torch.randn(l.shape, generator=generator,
+                           dtype=dtype or l.dtype,
+                           device=generator.device).to(l.device)
+            for n, l in named_leaves(params)}
+
+
+def tree_dot(a: dict, b: dict) -> torch.Tensor:
+    """Inner product of two dicts with the same keys."""
+    return sum(torch.vdot(a[k].reshape(-1), b[k].reshape(-1))
+               for k, _ in named_leaves(a))
+
+
+def tree_add(a: dict, b: dict, alpha: float = 1.0) -> dict:
+    return {k: v + alpha * b[k] for k, v in a.items()}
+
+
+def tree_scale(a: dict, alpha) -> dict:
+    return {k: alpha * v for k, v in a.items()}
+
+
+def tree_zeros_like(a: dict) -> dict:
+    return {k: torch.zeros_like(v) for k, v in a.items()}
+
+
+def parameters_per_layer(params: dict) -> list[int]:
+    """Number of parameters per leaf, in JAX tree order."""
+    return [int(v.numel()) for _, v in named_leaves(params)]

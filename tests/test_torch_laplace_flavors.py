@@ -277,7 +277,7 @@ def test_dispatch_keys():
     model, params = tla.model, tla.params
     assert set(TD.PORTED) == {
         ("all", "kron"), ("all", "full"), ("all", "diag"), ("all", "gp"),
-        ("last_layer", "kron"), ("last_layer", "full"),
+        ("all", "lowrank"), ("last_layer", "kron"), ("last_layer", "full"),
         ("last_layer", "diag"), ("last_layer", "gp"),
         ("subnetwork", "full"), ("subnetwork", "diag")}
     extra = {"gp": {"n_subset": 4}}
@@ -289,8 +289,8 @@ def test_dispatch_keys():
                                **kw)) is cls
     assert type(TD.Laplace(model, params, "classification")) is \
         TD.PORTED[("last_layer", "kron")]
-    with pytest.raises(NotImplementedError, match=r"item 14\(c\)"):
-        TD.Laplace(model, params, "classification", "all", "lowrank")
-    assert set(TD.WAITING) == {("all", "lowrank")}
+    assert type(TD.Laplace(model, params, "classification", "all",
+                           "lowrank")) is TD.PORTED[("all", "lowrank")]
+    assert TD.WAITING == {}
     with pytest.raises(ValueError, match="Subnetwork"):
         TD.Laplace(model, params, "classification", "subnetwork", "kron")
