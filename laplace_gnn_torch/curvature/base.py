@@ -16,18 +16,20 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..utils.pytree import (named_leaves, tree_add, tree_size,
                             tree_unflattener, tree_vector)
 
 
 class LinearOperator:
-    """Symmetric (unless stated) linear operator on flat parameter space."""
+    """Symmetric (unless stated) linear operator on flat parameter space,
+    on ``device`` (``cuda`` unless the caller passes ``device="cpu"``)."""
 
     def __init__(self, shape: tuple[int, int], dtype=torch.float32,
                  device=None):
         self.shape = shape
         self.dtype = dtype
-        self.device = torch.device("cpu") if device is None else device
+        self.device = resolve_device(device)
 
     # -- to implement -----------------------------------------------------
     def matvec(self, v: torch.Tensor) -> torch.Tensor:

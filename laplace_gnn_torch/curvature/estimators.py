@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from .kfac import _fold_seed
 
 
@@ -32,9 +33,11 @@ def _probes(seed: int, shape, distribution: str, dtype, device
 
 def random_probes(seed: int, shape, distribution: str = "rademacher",
                   dtype=torch.float32, device=None) -> torch.Tensor:
+    """Probes of ``shape`` from ``seed`` on ``device`` (``cuda`` unless
+    the caller passes ``device="cpu"``)."""
     if distribution not in ("rademacher", "normal"):
         raise ValueError(f"Unknown probe distribution {distribution!r}")
-    return _probes(seed, shape, distribution, dtype, device)
+    return _probes(seed, shape, distribution, dtype, resolve_device(device))
 
 
 def _op_probes(op, seed, shape, distribution="rademacher"):

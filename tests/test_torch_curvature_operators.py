@@ -234,7 +234,7 @@ def test_backends_match_the_oracles(likelihood):
 
 class _TDense(TB.LinearOperator):
     def __init__(self, A):
-        super().__init__(tuple(A.shape), A.dtype)
+        super().__init__(tuple(A.shape), A.dtype, device="cpu")
         self.A = A
 
     def matvec(self, v):
@@ -308,7 +308,7 @@ def test_check_deterministic_raises_on_a_random_operator():
             return v + torch.rand(v.shape, dtype=v.dtype)
 
     with pytest.raises(RuntimeError, match="not deterministic"):
-        Noisy((4, 4), torch.float64).check_deterministic()
+        Noisy((4, 4), torch.float64, "cpu").check_deterministic()
 
 
 def test_accumulate_over_batches_sums_dicts():

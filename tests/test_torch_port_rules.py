@@ -126,6 +126,13 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
         ArrayLoader(np.arange(5), np.zeros(5, int))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--dataset", "karate", "--model_type", "gcn"])
+    from laplace_gnn_torch.curvature import LinearOperator, random_probes
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LinearOperator((3, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        random_probes(0, (3, 2))
+    assert LinearOperator((3, 3), device="cpu").device == torch.device("cpu")
+    assert random_probes(0, (3, 2), device="cpu").device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
 
 
