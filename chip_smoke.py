@@ -155,8 +155,25 @@ Phases, each fatal:
      time, peak memory and launches;
      then the same parts on a small graph against the float64 CPU path
      (1e-4 relative for the composed parts, 1e-2 through the kernel);
- 16. hold ``core_spmm`` against its plain version, untimed, at every
-     (N, d, adjacency mode, t dtype, transpose) that phases 2-15 launched
+ 16. the whole run (``marglik_optimization_scan``) in bench.py's
+     ``bench_full_train`` configuration (200 epochs, 7 hyper phases of 10
+     hypersteps, burn-in 50, lr 1e-3, lr_adj 0.8, grad_norm) on the
+     phase-3 graph at Cora's width, with ``fused=False`` and
+     ``fused=True``: a cold call (the build, warm-up and CUDA-graph
+     capture of the program), a warm call that must hit the model's
+     program cache, the eager ``marglik_optimization`` on the same inputs
+     (traces within 1e-5 relative, the same best epochs, the final
+     adjacency within 1e-6), what was captured, ``core_spmm``'s launches
+     (per call of each step, replayed from a graph or called from Python)
+     and one warm run under torch.profiler (device time, busy share,
+     device launches); whether ``torch.linalg.eigvalsh`` can be captured
+     (in a process of its own); a 16-epoch dropout run and a 20-epoch run
+     with learned-graph snapshots against the eager loop (the files
+     deleted after); then on a small graph the card in float32 against
+     the CPU in float64, and the diagonal curvature (every step captured)
+     against the eager loop;
+ 17. hold ``core_spmm`` against its plain version, untimed, at every
+     (N, d, adjacency mode, t dtype, transpose) that phases 2-16 launched
      and no earlier check covered (each launch's shape is recorded as it
      is made), so no plan that the run chose goes unchecked; it stays the
      last phase.
@@ -181,6 +198,7 @@ import gc
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -2834,6 +2852,325 @@ def phase_curvature_engine_small(torch, np, devices=None):
     return {"errors": errs}
 
 
+# bench.py::bench_full_train's whole run: 200 epochs, hyper phases at
+# epochs 60, 80, ..., 180 (7 phases of 10 hypersteps; its docstring says 80)
+WHOLE_RUN = dict(lr=1e-3, lr_adj=0.8, weight_decay=5e-5, n_epochs=200,
+                 n_hypersteps=10, n_epochs_burnin=50, marglik_frequency=20,
+                 grad_norm=True, model_type="stegcn")
+WHOLE_RUN_RTOL, WHOLE_RUN_ADJ_ATOL = 1e-5, 1e-6   # tests/test_training.py
+
+# torch.linalg.eigvalsh under capture, in a process of its own (a refused
+# capture leaves the CUDA context unusable): whether the -log marglik
+# evaluation and the hyperstep could replay from graphs with a Kron
+# curvature
+EIGVALSH_CAPTURE = r"""
+import torch
+a = torch.randn(3, 7, 7, device="cuda")
+a = a @ a.transpose(-1, -2) + torch.eye(7, device="cuda")
+s = torch.cuda.Stream()
+s.wait_stream(torch.cuda.current_stream())
+with torch.cuda.stream(s):
+    torch.linalg.eigvalsh(a)
+torch.cuda.current_stream().wait_stream(s)
+torch.cuda.synchronize()
+g = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.graph(g):
+        torch.linalg.eigvalsh(a)
+    print("CAPTURED")
+except Exception as e:
+    print("REFUSED", type(e).__name__, str(e).splitlines()[0][:160])
+"""
+
+
+def _trace_gap(a, b) -> float:
+    """Largest |a - b| / |b| over two traces."""
+    return max(abs(float(x) - float(z)) / max(abs(float(z)), 1e-30)
+               for x, z in zip(a, b))
+
+
+def _run_pair(torch, scan, eager, label):
+    """Hold a whole run to the eager loop's: traces within
+    WHOLE_RUN_RTOL, the same best epochs, the final adjacency within
+    WHOLE_RUN_ADJ_ATOL; returns the gaps."""
+    (r1, p1, l1, v1, n1), (r2, p2, l2, v2, n2) = eager, scan
+    gaps = {"loss": _trace_gap(l2, l1), "val_loss": _trace_gap(v2, v1),
+            "neg_marglik": _trace_gap(n2, n1),
+            "adj_abs": float((p2["adj"] - p1["adj"]).abs().max()),
+            "params_rel": max(_rel(p2[k], p1[k]) for k in p1)}
+    epochs = {c: (r2[c]["epoch"], r1[c]["epoch"])
+              for c in ("marglik", "valloss")}
+    print(f"{label}: whole run vs eager loop, largest gaps {gaps}; best "
+          f"epochs (whole, eager) {epochs}", flush=True)
+    if (max(gaps["loss"], gaps["val_loss"], gaps["neg_marglik"])
+            > WHOLE_RUN_RTOL or gaps["adj_abs"] > WHOLE_RUN_ADJ_ATOL
+            or any(a != b for a, b in epochs.values())
+            or not all(bool(torch.isfinite(v).all()) for v in p2.values())):
+        raise AssertionError(f"{label}: the whole run parts from the eager "
+                             f"loop: {gaps} {epochs}")
+    return {"gaps": gaps, "best_epochs": epochs}
+
+
+def _step_launches(run):
+    return {name: dict(step.launches) for name, step in run.steps.items()}
+
+
+def phase_whole_run(torch, np, card):
+    """bench.py::bench_full_train's configuration through
+    marglik_optimization_scan on the phase-3 graph at Cora's width, with
+    fused=False (the configuration bench.py runs) and fused=True
+    (core_spmm): a cold call (build, warm-up and capture), a warm call
+    that must hit the program cache, the eager loop on the same inputs
+    (traces within 1e-5, the same best epochs, the final adjacency within
+    1e-6), core_spmm's launches per step kind and replayed, and one warm
+    run under torch.profiler; then a 16-epoch dropout run and a 20-epoch
+    run with snapshots against the eager loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.ops.fused_spmm import core
+    from laplace_gnn_torch.training.marglik_gnn import (
+        _model_program_cache, marglik_optimization,
+        marglik_optimization_scan)
+
+    try:
+        r = subprocess.run([sys.executable, "-c", EIGVALSH_CAPTURE],
+                           capture_output=True, text=True, timeout=120)
+        eig = next((l for l in r.stdout.splitlines()
+                    if l.startswith(("CAPTURED", "REFUSED"))),
+                   f"no answer: {r.stderr[-300:]}")
+    except subprocess.TimeoutExpired:   # a report only: nothing depends on it
+        eig = "no answer in 120 s"
+    print(f"torch.linalg.eigvalsh under CUDA-graph capture: {eig} (torch "
+          f"{torch.__version__})", flush=True)
+
+    X, adj, y = make_graph(np, np.random.default_rng(0))
+    tr, va = np.arange(N_TRAIN), np.arange(N_TRAIN, N_TRAIN + N_VAL)
+    split = (tr, y[tr], va, y[va])
+    out = {"config": WHOLE_RUN, "eigvalsh_capture": eig}
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    for fused in (False, True):
+        label = f"whole run fused={fused}"
+        model = STEGCN(N_FEAT, HIDDEN, N_CLASS, 2, X, adj, dropout_p=0.0,
+                       fused=fused, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+        params = model.params()
+
+        def scan():
+            return marglik_optimization_scan(model, params, *split,
+                                             device="cuda", **WHOLE_RUN)
+
+        core.launches = core.replayed = 0
+        cold, cold_s = timed_run(scan)
+        cold_launches = core.launches
+        cache = _model_program_cache(model)
+        (run,) = cache.values()
+        graphs = {k: s.graph for k, s in run.steps.items()}
+        before = _step_launches(run)
+        core.launches = core.replayed = 0
+        warm, warm_s = timed_run(scan)
+        launches, replayed = core.launches, core.replayed
+        after = _step_launches(run)
+        if len(cache) != 1 or next(iter(cache.values())) is not run or any(
+                s.graph is not graphs[k] for k, s in run.steps.items()):
+            raise AssertionError(f"{label}: the warm call missed the cache")
+        if fused and launches == 0:
+            raise AssertionError(f"{label}: no core_spmm launch")
+        if not fused and launches:
+            raise AssertionError(f"{label}: {launches} core_spmm launches")
+        if len(run.hyper_epochs) != 7:
+            raise AssertionError(f"{label}: hyper phases at "
+                                 f"{run.hyper_epochs}, not 7")
+        calls = {"train_step": WHOLE_RUN["n_epochs"],
+                 "neg_marglik": WHOLE_RUN["n_epochs"],
+                 "tracking": WHOLE_RUN["n_epochs"],
+                 "hyperstep": 7 * WHOLE_RUN["n_hypersteps"]}
+        per_step = {k: {name: (after[k].get(name, 0)
+                               - before[k].get(name, 0)) / calls[k]
+                        for name in set(after[k]) | set(before[k])}
+                    for k in calls}
+        for k in calls:
+            if run.steps[k].calls != 2 * calls[k]:
+                raise AssertionError(f"{label}: {k} ran "
+                                     f"{run.steps[k].calls} times in two "
+                                     f"calls, not {2 * calls[k]}")
+        # the same program on the same inputs: the same numbers
+        cold_gap = max(_trace_gap(b, a) for a, b in zip(cold[2:], warm[2:]))
+        if cold_gap > WHOLE_RUN_RTOL:
+            raise AssertionError(f"{label}: the warm call's traces part "
+                                 f"from the cold call's by {cold_gap}")
+
+        core.launches = core.replayed = 0
+        eager, eager_s = timed_run(lambda: marglik_optimization(
+            model, params, *split, verbose=False, device="cuda",
+            **WHOLE_RUN))
+        eager_launches = core.launches
+        check = _run_pair(torch, warm, eager, label)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            scan()
+            torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        device_ms = sum(x[1] for x in rows)
+        n_kernels = sum(x[2] for x in rows)
+        rows.sort(key=lambda x: -x[1])
+        prof_out = {"device_ms": device_ms, "device_launches": n_kernels,
+                    "wall_ms_under_profiler": prof_wall,
+                    "busy_share": device_ms / (warm_s * 1e3),
+                    "core_spmm_ms": sum(x[1] for x in rows
+                                        if "core_" in x[0]),
+                    "top": [{"name": k[:70], "ms": ms, "count": c}
+                            for k, ms, c in rows[:8]]}
+        print(f"{label}: cold {cold_s:.3f} s (build, warm-up, capture and "
+              f"the run), warm {warm_s:.3f} s (cache hit), eager loop "
+              f"{eager_s:.3f} s (host clock); warm vs cold traces "
+              f"{'bit-equal' if cold_gap == 0 else cold_gap}; captured "
+              f"{run.captured}; "
+              f"core_spmm launches: cold {cold_launches}, warm {launches} "
+              f"({replayed} replayed from graphs, {launches - replayed} "
+              f"from Python), eager {eager_launches}; per call of each "
+              f"step {per_step}  [{card}]", flush=True)
+        print(f"{label}: one warm run under torch.profiler: "
+              f"{device_ms:.3f} ms of device time in {n_kernels} device "
+              f"launches, busy share {prof_out['busy_share']:.3f} of the "
+              f"warm call's {warm_s * 1e3:.3f} ms (core_spmm "
+              f"{prof_out['core_spmm_ms']:.3f} ms)  [{card}]", flush=True)
+        for x in prof_out["top"]:
+            print(f"  {x['ms']:9.3f} ms x{x['count']:<6d} {x['name']}",
+                  flush=True)
+        out[f"fused={fused}"] = {
+            "cold_s": cold_s, "warm_s": warm_s, "eager_s": eager_s,
+            "warm_vs_cold_gap": cold_gap,
+            "captured": run.captured, "core_spmm": {
+                "cold": cold_launches, "warm": launches,
+                "warm_replayed": replayed, "eager": eager_launches,
+                "per_step_call": per_step},
+            "profile": prof_out, "check": check,
+            "losses": [float(v) for v in warm[2]],
+            "neg_margliks": [float(v) for v in warm[4]]}
+        del model, run, cache, cold, warm, eager
+        torch.cuda.empty_cache()
+
+    # dropout: a mask frozen by the capture would part the runs
+    model = STEGCN(N_FEAT, HIDDEN, N_CLASS, 2, X, adj, dropout_p=0.5,
+                   fused=True, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    params = model.params()
+    short = dict(WHOLE_RUN, n_epochs=16, n_hypersteps=2, n_epochs_burnin=4,
+                 marglik_frequency=4)
+    scan = marglik_optimization_scan(model, params, *split, device="cuda",
+                                     **short)
+    eager = marglik_optimization(model, params, *split, verbose=False,
+                                 device="cuda", **short)
+    out["dropout"] = _run_pair(torch, scan, eager,
+                               "whole run, dropout 0.5, 16 epochs")
+
+    # snapshots: the eager loop's files, kept small and then deleted; the
+    # composed model's hypersteps move the graph
+    model = STEGCN(N_FEAT, HIDDEN, N_CLASS, 2, X, adj, dropout_p=0.0,
+                   fused=False, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    params = model.params()
+    snap = dict(WHOLE_RUN, n_epochs=20, n_hypersteps=2, n_epochs_burnin=4,
+                marglik_frequency=4)
+    d = os.path.join(ROOT, "chiprun_out", "whole_run_snapshots")
+    dirs = {k: os.path.join(d, k) for k in ("scan", "eager")}
+    marglik_optimization_scan(model, params, *split, y=y, device="cuda",
+                              learned_graphs_dir=dirs["scan"], **snap)
+    marglik_optimization(model, params, *split, y=y, verbose=False,
+                         device="cuda", learned_graphs_dir=dirs["eager"],
+                         **snap)
+    files = {}
+    for k, path in dirs.items():
+        files[k] = {}
+        for fn in sorted(os.listdir(path)):
+            if fn.startswith("epoch_"):
+                with open(os.path.join(path, fn), "rb") as f:
+                    files[k][fn] = pickle.load(f)
+    if sorted(files["scan"]) != sorted(files["eager"]) or not files["scan"]:
+        raise AssertionError(f"snapshot files {sorted(files['scan'])} vs "
+                             f"{sorted(files['eager'])}")
+    for fn, a in files["scan"].items():
+        b = files["eager"][fn]
+        if (a["epoch"] != b["epoch"] or a["num_edges"] != b["num_edges"]
+                or not np.array_equal(a["edge_index"], b["edge_index"])):
+            raise AssertionError(f"snapshot {fn}: whole run and eager loop "
+                                 "differ")
+    print(f"snapshots: {sorted(files['scan'])} equal in epoch, num_edges "
+          f"and edge_index ({[a['num_edges'] for a in files['scan'].values()]}"
+          f" edges)", flush=True)
+    out["snapshots"] = sorted(files["scan"])
+    shutil.rmtree(d)
+    return out
+
+
+def phase_whole_run_small(torch, np):
+    """The whole run on a small graph, the card in float32 against the CPU
+    in float64 (1e-4 relative on the traces for the composed model, 1e-2
+    through the kernel); and the diagonal curvature, whose -log marglik
+    evaluation and hyperstep replay from graphs too, against the eager
+    loop on the card."""
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.training.marglik_gnn import (
+        _model_program_cache, marglik_optimization,
+        marglik_optimization_scan)
+
+    rng = np.random.default_rng(5)
+    n, f = 96, 24
+    X = rng.standard_normal((n, f))
+    adj = (rng.random((n, n)) < 0.08).astype(float)
+    adj = np.minimum(adj + adj.T, 1.0)
+    np.fill_diagonal(adj, 0.0)
+    y = rng.integers(0, N_CLASS, n)
+    split = (np.arange(40), y[:40], np.arange(40, 70), y[40:70])
+    kw = dict(WHOLE_RUN, n_epochs=10, n_hypersteps=2, n_epochs_burnin=2,
+              marglik_frequency=4)
+    out = {}
+    for fused, tol in ((False, 1e-4), (True, 1e-2)):
+        traces = {}
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+            m = STEGCN(f, 16, N_CLASS, 2, X, adj, dropout_p=0.0, fused=fused,
+                       device=dev, dtype=dt,
+                       generator=torch.Generator().manual_seed(0))
+            _, _, losses, _, nms = marglik_optimization_scan(
+                m, m.params(), *split, device=dev, **kw)
+            traces[dev] = (losses, nms)
+        gap = max(_trace_gap(traces["cuda"][i], traces["cpu"][i])
+                  for i in (0, 1))
+        print(f"small whole run fused={fused}: card f32 vs CPU f64 traces, "
+              f"largest relative gap {gap:.3e} (held at {tol})", flush=True)
+        if not gap <= tol:
+            raise AssertionError(f"small whole run fused={fused}: {gap}")
+        out[f"fused={fused}"] = gap
+    m = STEGCN(f, 16, N_CLASS, 2, X, adj, dropout_p=0.0, fused=True,
+               device="cuda", generator=torch.Generator().manual_seed(0))
+    diag = dict(kw, hessian_structure="diag")
+    scan = marglik_optimization_scan(m, m.params(), *split, device="cuda",
+                                     **diag)
+    (run,) = _model_program_cache(m).values()
+    if not all(run.captured.values()):
+        raise AssertionError(f"diag whole run captured {run.captured}")
+    eager = marglik_optimization(m, m.params(), *split, verbose=False,
+                                 device="cuda", **diag)
+    out["diag"] = _run_pair(torch, scan, eager,
+                            "small whole run, diag curvature, all captured")
+    return out
+
+
 def build_kernels(cuda_build, out_dir, names=None):
     """Phase 1: build the named sources (default all), one nvcc each, all at
     once; each ptxas report goes to ``build_<source>.log``."""
@@ -2970,7 +3307,10 @@ def main(argv=None) -> int:
     engine_small = phase("15", phase_curvature_engine_small, torch, np)
     del stegcn_state
     torch.cuda.empty_cache()
-    launched = phase("16", phase_core_launched, torch, fs)
+    whole = phase("16", phase_whole_run, torch, np, card)
+    whole_small = phase("16", phase_whole_run_small, torch, np)
+    torch.cuda.empty_cache()
+    launched = phase("17", phase_core_launched, torch, fs)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -2978,6 +3318,7 @@ def main(argv=None) -> int:
         "replaces": "laplace_gnn_tpu/ops/pallas_spmm.py:43",
         "redesigned": "PR 6",
         "launches": run["run_launches"], "max_abs_err": max_err,
+        "whole_run": whole["fused=True"]["core_spmm"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"]}]
@@ -3029,6 +3370,7 @@ def main(argv=None) -> int:
                    "library": library, "library_small": library_small,
                    "curvature_engine": engine,
                    "curvature_engine_small": engine_small,
+                   "whole_run": whole, "whole_run_small": whole_small,
                    "core_spmm_launched": launched,
                    "phase_seconds": seconds,
                    "kernels": kernels}, f, indent=1, default=str)

@@ -98,13 +98,16 @@ class CurvatureBackend:
         M, C = out.shape
         rows_of = torch.func.vmap(pullback)
         cls = torch.arange(C, device=out.device)
+        # a device tensor, not a Python 1.0: a scalar would be copied from
+        # the host at each call, which a CUDA-graph capture refuses
+        one = torch.ones((), dtype=out.dtype, device=out.device)
 
         def rows(m0, m1):
             ms = torch.arange(m0, m1, device=out.device)
             b = ms.shape[0]
             cot = torch.zeros((b, C, M, C), dtype=out.dtype, device=out.device)
             cot[torch.arange(b, device=out.device)[:, None], cls[None, :],
-                ms[:, None], cls[None, :]] = 1.0
+                ms[:, None], cls[None, :]] = one
             grads = rows_of(cot.reshape(b * C, M, C))
             return torch.cat([g.reshape(b * C, -1) for g in grads],
                              dim=1).reshape(b, C, -1)

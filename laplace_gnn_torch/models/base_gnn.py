@@ -47,6 +47,8 @@ def _shallow_clone(module: nn.Module) -> nn.Module:
     clone = copy.copy(module)
     for key in ("_parameters", "_buffers", "_modules"):
         clone.__dict__[key] = dict(module.__dict__[key])
+    # the whole-run programs are keyed by configuration, not by this clone
+    clone.__dict__.pop("_program_cache", None)
     return clone
 
 
@@ -166,6 +168,15 @@ class BaseGNN(nn.Module):
 
     def full_adj(self, params: dict) -> torch.Tensor:
         return params["adj"]
+
+    def reset_adj(self, params: dict) -> dict:
+        """A new dict whose ``adj`` is a copy of the initial adjacency, in
+        ``params["adj"]``'s dtype and on its device."""
+        out = dict(params)
+        out["adj"] = self.init_adj.to(dtype=params["adj"].dtype,
+                                      device=params["adj"].device,
+                                      copy=True)
+        return out
 
     def jvp_safe(self) -> "BaseGNN":
         """Clone whose ``attention_impl="flash"`` convs run the plain

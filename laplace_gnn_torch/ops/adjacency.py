@@ -1,5 +1,5 @@
-"""Adjacency-matrix ops: normalization, the straight-through binarizer and
-GraphSAGE's neighbour sample.
+"""Adjacency-matrix ops: normalization, symmetrization and powers, the
+straight-through binarizer and clip, and GraphSAGE's neighbour sample.
 
 Counterpart of ``laplace_gnn_tpu/ops/adjacency.py``.
 """
@@ -20,6 +20,27 @@ def normalize_adj(adj: torch.Tensor) -> torch.Tensor:
     d = torch.where(rowsum > 0, torch.rsqrt(torch.clamp(rowsum, min=1e-38)),
                     torch.zeros_like(rowsum))
     return d[:, None] * adj.T * d[None, :]
+
+
+def symmetrize_adj(adj: torch.Tensor) -> torch.Tensor:
+    """A + A^T clipped at 1 (a tie at 1 splits its gradient, as JAX's
+    ``minimum`` does)."""
+    s = adj + adj.T
+    return torch.minimum(s, torch.ones_like(s))
+
+
+def power_adj(adj, power: int):
+    """A^power by repeated products (a tensor, or a numpy array)."""
+    out = adj
+    for _ in range(power - 1):
+        out = out @ adj
+    return out
+
+
+def preprocess_adj(adj: torch.Tensor) -> torch.Tensor:
+    """Self-loops, then the symmetric degree normalization."""
+    return normalize_adj(adj + torch.eye(adj.shape[0], dtype=adj.dtype,
+                                         device=adj.device))
 
 
 def train_adj_mask(n_nodes: int, train_nodes, device=None,
@@ -81,6 +102,29 @@ def binarize_ste(x: torch.Tensor, threshold: float,
                  sign_grad: bool = False) -> torch.Tensor:
     """``(x > threshold)`` with a straight-through gradient into ``x``."""
     return _BinarizeSTE.apply(x, threshold, mask, sign_grad)
+
+
+class _ClipSTE(torch.autograd.Function):
+    """Clamp to [0, 1]; the backward clamps the cotangent to [0, 1] too
+    (JAX's ``clip_ste``), with differentiable ops."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.clamp(x, 0.0, 1.0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(g, 0.0, 1.0)
+
+
+def clip_ste(x: torch.Tensor) -> torch.Tensor:
+    return _ClipSTE.apply(x)
 
 
 def _neigh_uniforms(n: int, generator: torch.Generator, dtype,

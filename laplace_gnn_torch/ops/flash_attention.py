@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .cuda_build import load
+from .launches import LaunchCounter
 
 NEG_BIG = -1e30          # floor of the running max, as in the TPU kernel
 ROW_BLOCK = 256          # target rows per block of the plain versions
@@ -282,7 +283,7 @@ def bwd_workspace(p: Plan, n: int, r: int, heads: int, f: int) -> int:
     return floats
 
 
-class _FlashKernel:
+class _FlashKernel(LaunchCounter):
     """Shared part of the two wrappers: the library entry, the card's SM
     count and a launch counter that only the launch itself increments."""
 
@@ -292,7 +293,7 @@ class _FlashKernel:
     backward = False
 
     def __init__(self):
-        self.launches = 0
+        super().__init__()
         self._sms: dict = {}
         self._fn = None
 
@@ -326,7 +327,7 @@ class _FlashKernel:
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error "
                                f"{rc}")
-        self.launches += 1
+        self._counted()
 
 
 class FlashForwardKernel(_FlashKernel):

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .cuda_build import load
+from .launches import LaunchCounter
 
 BM = 128                  # the kernel's row tile (rows of out)
 SKINNY_BN = (8, 32, 64)   # column tiles for d <= 64: t's columns in one tile
@@ -126,14 +127,14 @@ def plan(n: int, d: int, a_dtype: torch.dtype, t_dtype: torch.dtype,
                 vec_a=vec_a, vec_t=vec_t)
 
 
-class CoreKernel:
+class CoreKernel(LaunchCounter):
     """Wrapper of the ``core_spmm`` CUDA kernel with a launch counter."""
 
     name = "core_spmm"
     source = "laplace_gnn_torch/csrc/core_spmm.cu"
 
     def __init__(self):
-        self.launches = 0
+        super().__init__()
         self._sms: dict = {}
         self._fn = None
 
@@ -191,7 +192,7 @@ class CoreKernel:
             int(binarize), int(transpose), stream)
         if rc != 0:
             raise RuntimeError(f"core_spmm launch failed with CUDA error {rc}")
-        self.launches += 1
+        self._counted()
         return out
 
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .cuda_build import load
+from .launches import LaunchCounter
 
 # the kernel's output tiles (BM, BN): wide, skinny (N <= 64) and narrow
 WIDE, SKINNY, NARROW = (128, 128), (128, 64), (64, 64)
@@ -115,7 +116,7 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype, a_ptr: int, b_ptr: int,
                 k_per_split=k_per_split)
 
 
-class MatmulKernel:
+class MatmulKernel(LaunchCounter):
     """Wrapper of the ``matmul`` CUDA kernel with a launch counter (one per
     call, also when a split-K reduce follows as a second device launch)."""
 
@@ -123,7 +124,7 @@ class MatmulKernel:
     source = "laplace_gnn_torch/csrc/matmul.cu"
 
     def __init__(self):
-        self.launches = 0
+        super().__init__()
         self._fn = None
         self._sms = {}     # device -> its streaming multiprocessors
 
@@ -186,7 +187,7 @@ class MatmulKernel:
                            stream)
         if rc != 0:
             raise RuntimeError(f"matmul launch failed with CUDA error {rc}")
-        self.launches += 1
+        self._counted()
         return out
 
 

@@ -10,6 +10,11 @@ Laplace approximation, with marglik- and valloss-based early stopping.
 One hyperstep is :func:`make_neg_marglik_fn`'s function and its gradient
 w.r.t. the adjacency parameters: KFAC factors (curvature/kfac.py), eigenvalue
 log-determinants, marglik, then ``torch.autograd.grad``.
+
+:func:`marglik_optimization` is the eager loop, which reads every epoch's
+metrics on the host; :func:`marglik_optimization_scan` is the whole run
+with its state on the device, replayed from CUDA graphs on a GPU and
+cached on the model per configuration.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ..laplace.dispatch import Laplace
 from ..ops.linalg import batched_eigvalsh, clip_min0
 from ..utils.data import ArrayLoader
 from ..utils.pytree import named_leaves
+from .graphs import Step, capture
 
 PATIENCE = 20
 
@@ -187,17 +193,60 @@ def _accuracy(f, yy):
     return torch.mean((torch.argmax(f, dim=1) == yy).to(f.dtype))
 
 
+class DeviceAdam:
+    """``torch.optim.Adam``'s update (the L2 term added to the gradient, no
+    amsgrad), step for step as its single-tensor loop computes it, with the
+    step count a float64 tensor on the parameters' device: every part of
+    the update is device work, so a CUDA graph can replay it. (torch's
+    ``capturable=True`` Adam keeps the count in the default float dtype,
+    whose float32 bias corrections part from the non-capturable update by
+    ~1e-7, and refuses CPU tensors.)"""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+                 betas=(0.9, 0.999), eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.weight_decay, self.betas, self.eps = (
+            lr, weight_decay, betas, eps)
+        self.step_count = torch.zeros((), dtype=torch.float64,
+                                      device=self.params[0].device)
+        self.exp_avg = [torch.zeros_like(p) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+
+    def reset(self) -> None:
+        """Back to the state of a new optimizer, in place."""
+        self.step_count.zero_()
+        for t in self.exp_avg + self.exp_avg_sq:
+            t.zero_()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        beta1, beta2 = self.betas
+        self.step_count += 1
+        neg_step_size = -(self.lr / (1 - beta1 ** self.step_count))
+        bias_correction2_sqrt = (1 - beta2 ** self.step_count) ** 0.5
+        for p, m, v in zip(self.params, self.exp_avg, self.exp_avg_sq):
+            g = p.grad
+            if self.weight_decay != 0:
+                g = g.add(p, alpha=self.weight_decay)
+            m.lerp_(g, 1 - beta1)
+            v.mul_(beta2).addcmul_(g, g, value=1 - beta2)
+            denom = (v.sqrt() / bias_correction2_sqrt).add_(self.eps)
+            p.add_(neg_step_size * m / denom)
+
+
 class TrainingPrograms:
-    """The optimizers and step functions of the eager marglik loop, bound
-    to one params dict of leaf tensors that they update in place.
+    """The optimizers and step functions of both marglik loops, bound to
+    one params dict of leaf tensors that they update in place.
 
     The two optimizers match optax as the JAX package uses it:
     ``add_decayed_weights(wd)`` before ``adam`` is Adam with the L2 term in
-    the gradient (``torch.optim.Adam(weight_decay=wd)``), and
-    ``sgd(lr, momentum)`` is SGD with ``dampening=0``. Each touches only its
-    own parameters: the weights (every name without ``adj``; AttSTEGCN's
-    ``adj_W`` is in neither set, so it is never trained, as in JAX) and
-    the model's ``adj_params`` (``adj``, or LoRA's ``adj_lora_*``)."""
+    the gradient (:class:`DeviceAdam`, torch's update with its step count
+    on the device, so the eager loop and the whole run compute the same
+    numbers), and ``sgd(lr, momentum)`` is SGD with ``dampening=0``. Each
+    touches only its own parameters: the weights (every name without
+    ``adj``; AttSTEGCN's ``adj_W`` is in neither set, so it is never
+    trained, as in JAX) and the model's ``adj_params`` (``adj``, or LoRA's
+    ``adj_lora_*``)."""
 
     def __init__(self, model, params: dict, *, lr, weight_decay, lr_adj,
                  weight_decay_adj, momentum_adj, grad_norm,
@@ -207,9 +256,8 @@ class TrainingPrograms:
         self.params = params
         self.grad_norm = grad_norm
         self.weight_names = [k for k in params if "adj" not in k]
-        self.weight_opt = torch.optim.Adam(
-            [params[k] for k in self.weight_names], lr=lr,
-            weight_decay=weight_decay)
+        self.weight_opt = DeviceAdam([params[k] for k in self.weight_names],
+                                     lr=lr, weight_decay=weight_decay)
         self.adj_names = list(model.adj_params)
         self.adj_opt = torch.optim.SGD(
             [params[k] for k in self.adj_names], lr=lr_adj,
@@ -488,3 +536,388 @@ def fit_laplace(model, params: dict, train_indices, train_labels,
     la.fit(ArrayLoader(_as_index(train_indices, dev),
                        _as_index(train_labels, dev), device=dev))
     return la
+
+
+# ---------------------------------------------------------------------------
+# The whole run: state on the device, steps replayed from CUDA graphs, one
+# program per model x static configuration
+# ---------------------------------------------------------------------------
+
+def _model_program_cache(model) -> dict:
+    return model.__dict__.setdefault("_program_cache", {})
+
+
+def _static_key(*parts):
+    """Hashable cache key, or None when a part is a tensor or unhashable
+    (an array prior precision): then the caller builds uncached."""
+    if any(isinstance(p, torch.Tensor) for p in parts):
+        return None
+    try:
+        hash(parts)
+        return parts
+    except TypeError:
+        return None
+
+
+def marglik_optimization_scan(model, params: dict,
+                              train_indices, train_labels,
+                              val_indices, val_labels,
+                              lr: float = 0.01,
+                              lr_adj: float = 0.1,
+                              weight_decay: float = 0.5,
+                              weight_decay_adj: float = 0.0,
+                              momentum_adj: float = 0.0,
+                              n_epochs: int = 100,
+                              n_hypersteps: int = 20,
+                              n_epochs_burnin: int = 40,
+                              n_hyper_stop: Optional[int] = None,
+                              marglik_frequency: int = 20,
+                              subset_of_weights: str = "all",
+                              hessian_structure: str = "kron",
+                              prior_precision: float = 1.0,
+                              grad_norm: bool = False,
+                              early_stop: bool = False,
+                              model_type: str = "stegcn",
+                              fisher_type: str = "type-2",
+                              sketch_size: int = 8,
+                              column_chunk: Optional[int] = None,
+                              mc_samples: int = 1,
+                              diag_probes: Optional[int] = None,
+                              probe_batch: Optional[int] = None,
+                              fisher_seed: int = 0,
+                              learned_graphs_dir: Optional[str] = None,
+                              y=None,
+                              device=None):
+    """:func:`marglik_optimization` as one program: every epoch, hyperstep
+    and the best-model tracking of both stop criteria run on the device,
+    and nothing is read back to the host until the run ends. Returns
+    (results, final_params, losses, val_losses, neg_margliks), the traces
+    as numpy arrays; the same numbers as the eager loop on the same inputs
+    (dropout draws from one ``torch.Generator`` seeded with 0, one draw a
+    train step).
+
+    All of the state lives on ``device`` (default ``cuda``) for the whole
+    run: the parameters, both optimizers' states, the traces, the best
+    values, epochs and parameters of both criteria (kept by
+    ``torch.where`` selects), the patience counters, the no-more-graph-
+    updates flag and the snapshot buffers. The hyper schedule is static, so
+    the host loop decides it from the epoch number; with
+    ``early_stop=True`` it reads the device's no-more-graph-updates flag
+    once at each scheduled hyper phase, where the JAX package's
+    ``lax.cond`` decides on the device, with the same results.
+
+    On a GPU the program is built on the first call of a configuration:
+    the train step, the validation forward with the tracking, and (when
+    the curvature holds no eigensolve) the -log marglik evaluation and the
+    hyperstep are captured as CUDA graphs (``training/graphs.py``) and
+    replayed every epoch; ``_build_scan_run`` says which. The program is
+    cached on the model under the static configuration (the split's
+    shapes included): a later call with any split of the same shapes
+    copies it into the program's own tensors and replays.
+
+    ``learned_graphs_dir`` keeps each hyper phase's binarized adjacency on
+    the device in a preallocated (phases, N, N) bool buffer and writes the
+    eager loop's ``epoch_*.pkl`` / ``latest_adj.npy`` files after the run
+    (``marglik`` is the epoch's -log marglik trace entry after its
+    hypersteps, as the JAX package's whole run writes it); pass ``y`` (all
+    labels) for their homophily."""
+    dev = resolve_device(device)
+    if "adj" not in params:
+        raise ValueError("Expected 'adj' in model parameters")
+    for k, v in params.items():
+        if v.device.type != dev.type:
+            raise ValueError(f"param {k!r} is on {v.device}, not {dev}")
+    train_indices = _as_index(train_indices, dev)
+    train_labels = _as_index(train_labels, dev)
+    val_indices = _as_index(val_indices, dev)
+    val_labels = _as_index(val_labels, dev)
+    N = int(train_labels.shape[0])
+    snapshots = learned_graphs_dir is not None
+
+    run = _build_scan_run(
+        model, params, dev=dev, n_val=int(val_labels.shape[0]), lr=lr,
+        lr_adj=lr_adj, weight_decay=weight_decay,
+        weight_decay_adj=weight_decay_adj, momentum_adj=momentum_adj,
+        n_epochs=n_epochs, n_hypersteps=n_hypersteps,
+        n_epochs_burnin=n_epochs_burnin, n_hyper_stop=n_hyper_stop,
+        marglik_frequency=marglik_frequency,
+        subset_of_weights=subset_of_weights,
+        hessian_structure=hessian_structure,
+        prior_precision=prior_precision, grad_norm=grad_norm,
+        early_stop=early_stop, model_type=model_type, N=N,
+        fisher_type=fisher_type, sketch_size=sketch_size,
+        column_chunk=column_chunk, mc_samples=mc_samples,
+        diag_probes=diag_probes, probe_batch=probe_batch,
+        fisher_seed=fisher_seed, snapshots=snapshots)
+    run(params, train_indices, train_labels, val_indices, val_labels)
+
+    final = run.copy_params(run.params)
+    if snapshots:
+        _write_scan_snapshots(model, learned_graphs_dir, run.snaps,
+                              run.traces, final, y)
+    results = {
+        "marglik": {"params": run.copy_params(run.best["nm_params"]),
+                    "epoch": int(run.best["nm_epoch"])},
+        "valloss": {"params": run.copy_params(run.best["vl_params"]),
+                    "epoch": int(run.best["vl_epoch"])},
+    }
+    # copies: the program's buffers are the next call's
+    traces = {k: v.cpu().numpy().copy() for k, v in run.traces.items()}
+    return (results, final, traces["loss"], traces["val_loss"],
+            traces["neg_marglik"])
+
+
+def _write_scan_snapshots(model, learned_graphs_dir, snaps, traces,
+                          params_final, y):
+    """The host-side dump of the on-device hyper-phase snapshots, with the
+    eager loop's file schema (``edge_index``, ``marglik``, ``num_edges``,
+    ``homophily``, ``epoch``, and ``latest_adj.npy``), so
+    ``graph/plots.py`` reads both."""
+    os.makedirs(learned_graphs_dir, exist_ok=True)
+    count = int(snaps["count"])
+    adjs = snaps["adj"][:count].cpu().numpy()
+    epochs = snaps["epoch"][:count].cpu().numpy()
+    n_edges = snaps["num_edges"][:count].cpu().numpy()
+    nm_trace = traces["neg_marglik"].cpu().numpy()
+    y_np = np.asarray(y) if y is not None else None
+    for k in range(count):
+        adj = adjs[k].astype(np.float32)
+        epoch = int(epochs[k])
+        h = global_homophily(adj, y_np) if y_np is not None else None
+        with open(os.path.join(learned_graphs_dir,
+                               f"epoch_{epoch}.pkl"), "wb") as f:
+            pickle.dump({"edge_index": adj_to_edge_index(adj),
+                         "marglik": -float(nm_trace[epoch - 1]),
+                         "num_edges": float(n_edges[k]),
+                         "homophily": h, "epoch": epoch}, f)
+    np.save(os.path.join(learned_graphs_dir, "latest_adj.npy"),
+            model.full_adj(params_final).detach().cpu().numpy())
+
+
+def _build_scan_run(model, params, *, dev, n_val, lr, lr_adj, weight_decay,
+                    weight_decay_adj, momentum_adj, n_epochs, n_hypersteps,
+                    n_epochs_burnin, n_hyper_stop, marglik_frequency,
+                    subset_of_weights, hessian_structure, prior_precision,
+                    grad_norm, early_stop, model_type, N,
+                    fisher_type="type-2", sketch_size=8, column_chunk=None,
+                    mc_samples=1, diag_probes=None, probe_batch=None,
+                    fisher_seed=0, snapshots=False) -> "ScanRun":
+    """The whole-run program of :func:`marglik_optimization_scan`, cached
+    on the model per static configuration, with the split data copied in
+    at each call. ``PATIENCE``, the parameters' names, shapes and dtypes,
+    the validation size and the device are part of the key."""
+    n_hyper_stop = n_hyper_stop if n_hyper_stop is not None else n_epochs
+    cfg = dict(lr=lr, lr_adj=lr_adj, weight_decay=weight_decay,
+               weight_decay_adj=weight_decay_adj, momentum_adj=momentum_adj,
+               n_epochs=n_epochs, n_hypersteps=n_hypersteps,
+               n_epochs_burnin=n_epochs_burnin, n_hyper_stop=n_hyper_stop,
+               marglik_frequency=marglik_frequency,
+               subset_of_weights=subset_of_weights,
+               hessian_structure=hessian_structure,
+               prior_precision=prior_precision, grad_norm=grad_norm,
+               early_stop=early_stop, model_type=model_type, N=N,
+               fisher_type=fisher_type, sketch_size=sketch_size,
+               column_chunk=column_chunk, mc_samples=mc_samples,
+               diag_probes=diag_probes, probe_batch=probe_batch,
+               fisher_seed=fisher_seed, snapshots=snapshots)
+    key = _static_key("scan", *cfg.values(), PATIENCE,
+                      tuple((k, tuple(v.shape), str(v.dtype))
+                            for k, v in params.items()), n_val, str(dev))
+    cache = _model_program_cache(model)
+    if key is not None and key in cache:
+        return cache[key]
+    run = ScanRun(model, params, dev, n_val, **cfg)
+    if key is not None:
+        cache[key] = run
+    return run
+
+
+class ScanRun:
+    """The program of one whole-run configuration: its state tensors, its
+    steps and, on a GPU, their CUDA graphs.
+
+    ``captured`` says which steps replay from a graph. On a GPU the train
+    step and the tracking step (the validation forward, the trace writes
+    and the best-value selects) are captured; the -log marglik evaluation
+    and the hyperstep are captured only when the curvature has no
+    eigensolve (``hessian_structure="diag"``), since torch's eigensolvers
+    check their result on the host, which a capture refuses (the Kron
+    log-determinant's eigvalsh, Full's slogdet). So the Kron fisher types
+    that draw on the CPU (sketch, MC) never enter a capture either. A
+    capture that fails raises. On the CPU every step runs as it is."""
+
+    def __init__(self, model, params, dev, n_val, *, n_epochs, n_hypersteps,
+                 n_epochs_burnin, n_hyper_stop, marglik_frequency,
+                 early_stop, model_type, N, snapshots, hessian_structure,
+                 **cfg):
+        self.model = model
+        self.n_epochs, self.n_hypersteps = n_epochs, n_hypersteps
+        self.early_stop = early_stop
+        self.no_adj_update = model_type in NO_ADJ_UPDATE_MODELS
+        self.hyper_epochs = [] if self.no_adj_update else [
+            e for e in range(1, n_epochs + 1)
+            if e < n_hyper_stop and e % marglik_frequency == 0
+            and e >= n_epochs_burnin]
+        self.is_ste = "ste" in model_type
+        self.n_epochs_burnin = n_epochs_burnin
+
+        def zeros(*shape, dtype=None):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.params = {k: v.detach().clone().requires_grad_(True)
+                       for k, v in params.items()}
+        dt = self.params["adj"].dtype
+        self.tr_idx = zeros(N, dtype=torch.long)
+        self.tr_y = zeros(N, dtype=torch.long)
+        self.va_idx = zeros(n_val, dtype=torch.long)
+        self.va_y = zeros(n_val, dtype=torch.long)
+        self.progs = TrainingPrograms(
+            model, self.params, hessian_structure=hessian_structure, N=N,
+            **cfg)
+        # present from the start, so a captured step never makes it; zero
+        # is what torch's first step (buf = g) amounts to
+        if self.progs.adj_opt.defaults["momentum"]:
+            for k in self.progs.adj_names:
+                self.progs.adj_opt.state[self.params[k]][
+                    "momentum_buffer"] = torch.zeros_like(self.params[k])
+        self.generator = torch.Generator(device=dev)
+        self.epoch = zeros(dtype=torch.long)
+        self.loss = zeros(dtype=dt)
+        self.nm = zeros(dtype=dt)
+        self.traces = {k: zeros(n_epochs, dtype=dt)
+                       for k in ("loss", "val_loss", "neg_marglik")}
+        self.best = {
+            "nm": zeros(dtype=dt), "nm_epoch": zeros(dtype=torch.long),
+            "nm_params": {k: torch.zeros_like(v)
+                          for k, v in self.params.items()},
+            "vl": zeros(dtype=dt), "vl_epoch": zeros(dtype=torch.long),
+            "vl_params": {k: torch.zeros_like(v)
+                          for k, v in self.params.items()},
+            "m_pat": zeros(dtype=torch.long),
+            "v_pat": zeros(dtype=torch.long),
+            "no_adj": zeros(dtype=torch.bool)}
+        n_snap = len(self.hyper_epochs) if snapshots else 0
+        n_nodes = int(self.params["adj"].shape[0])
+        self.snaps = {"adj": zeros(n_snap, n_nodes, n_nodes,
+                                   dtype=torch.bool),
+                      "epoch": zeros(n_snap, dtype=torch.long),
+                      "num_edges": zeros(n_snap, dtype=dt),
+                      "count": zeros(dtype=torch.long)}
+
+        gpu = dev.type == "cuda"
+        curvature = gpu and hessian_structure == "diag"
+        self.steps = {
+            "train_step": Step("train_step", self._train_step, gpu),
+            "hyperstep": Step("hyperstep", self._hyperstep, curvature),
+            "neg_marglik": Step("neg_marglik", self._neg_marglik,
+                                curvature),
+            "tracking": Step("tracking", self._tracking, gpu)}
+        self.captured = {k: s.capture for k, s in self.steps.items()}
+        if gpu:
+            # the warm-up runs on these parameters at node 0
+            self._load(params, self.tr_idx, self.tr_y, self.va_idx,
+                       self.va_y)
+            capture(self.steps.values(), generators=(self.generator,))
+
+    # --- the steps: each reads and writes only the tensors above ---------
+    def _train_step(self):
+        self.epoch += 1
+        loss, _ = self.progs.train_step(self.tr_idx, self.tr_y,
+                                        self.generator)
+        self.loss.copy_(loss)
+
+    def _hyperstep(self):
+        self.progs.hyperstep(self.tr_idx, self.tr_y)
+
+    def _neg_marglik(self):
+        self.nm.copy_(self.progs.neg_marglik_eval(self.tr_idx, self.tr_y))
+
+    @torch.no_grad()
+    def _tracking(self):
+        vl, _ = self.progs.val_metrics(self.va_idx, self.va_y)
+        i = (self.epoch - 1).view(1)
+        for name, v in (("loss", self.loss), ("val_loss", vl),
+                        ("neg_marglik", self.nm)):
+            self.traces[name].index_copy_(0, i, v.view(1))
+        b, nm, epoch = self.best, self.nm, self.epoch
+        track = (epoch > self.n_epochs_burnin if self.is_ste
+                 else torch.ones_like(b["no_adj"]))
+        m_active = track & (b["m_pat"] < PATIENCE if self.early_stop
+                            else True)
+        v_active = track & (b["v_pat"] < PATIENCE if self.early_stop
+                            else True)
+        upd_m = m_active & (nm < b["nm"])
+        upd_v = v_active & (vl < b["vl"])
+        if self.early_stop:
+            # the eager loop's order: reset or advance each counter, then
+            # halt the graph updates when the marglik patience runs out
+            b["m_pat"].copy_(torch.where(m_active, torch.where(
+                upd_m, 0, b["m_pat"] + 1), b["m_pat"]))
+            b["v_pat"].copy_(torch.where(v_active, torch.where(
+                upd_v, 0, b["v_pat"] + 1), b["v_pat"]))
+            hit = track & (b["m_pat"] == PATIENCE)
+            b["no_adj"].logical_or_(hit)
+            b["m_pat"].add_(hit.long())
+        for upd, tag, value in ((upd_m, "nm", nm), (upd_v, "vl", vl)):
+            b[tag].copy_(torch.where(upd, value, b[tag]))
+            b[f"{tag}_epoch"].copy_(torch.where(upd, epoch,
+                                                b[f"{tag}_epoch"]))
+            for k, p in self.params.items():
+                b[f"{tag}_params"][k].copy_(
+                    torch.where(upd, p, b[f"{tag}_params"][k]))
+
+    @torch.no_grad()
+    def _snapshot(self, k: int, epoch: int):
+        adj = self.model.full_adj(self.params)
+        self.snaps["adj"][k].copy_(adj > 0)
+        self.snaps["epoch"][k].fill_(epoch)
+        self.snaps["num_edges"][k].copy_(adj.sum())
+        self.snaps["count"].fill_(k + 1)
+
+    # --- a run ------------------------------------------------------------
+    @torch.no_grad()
+    def _load(self, params, tr_idx, tr_y, va_idx, va_y):
+        """Copy a call's inputs in and reset every piece of state."""
+        for k, v in self.params.items():
+            v.copy_(params[k])
+        for dst, src in ((self.tr_idx, tr_idx), (self.tr_y, tr_y),
+                         (self.va_idx, va_idx), (self.va_y, va_y)):
+            dst.copy_(src)
+        self.progs.weight_opt.reset()
+        for state in self.progs.adj_opt.state.values():
+            if state.get("momentum_buffer") is not None:
+                state["momentum_buffer"].zero_()
+        self.generator.manual_seed(0)
+        self.epoch.zero_()
+        for t in self.traces.values():
+            t.zero_()
+        b = self.best
+        for tag in ("nm", "vl"):
+            b[tag].fill_(math.inf)
+            b[f"{tag}_epoch"].zero_()
+            for k, v in self.params.items():
+                b[f"{tag}_params"][k].copy_(v)
+        for t in (b["m_pat"], b["v_pat"], b["no_adj"], self.snaps["count"]):
+            t.zero_()
+
+    def __call__(self, params, tr_idx, tr_y, va_idx, va_y) -> None:
+        self._load(params, tr_idx, tr_y, va_idx, va_y)
+        steps, hyper = self.steps, set(self.hyper_epochs)
+        n_phases = 0
+        for epoch in range(1, self.n_epochs + 1):
+            steps["train_step"]()
+            # the one host read of the run: at a scheduled hyper phase, and
+            # only when the early stop can have halted the graph updates
+            if epoch in hyper and not (self.early_stop
+                                       and bool(self.best["no_adj"])):
+                for _ in range(self.n_hypersteps):
+                    steps["hyperstep"]()
+                if self.snaps["adj"].shape[0]:
+                    self._snapshot(n_phases, epoch)
+                n_phases += 1
+            steps["neg_marglik"]()
+            steps["tracking"]()
+
+    @staticmethod
+    def copy_params(params: dict) -> dict:
+        return {k: v.detach().clone() for k, v in params.items()}

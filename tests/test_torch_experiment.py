@@ -90,9 +90,11 @@ def test_npz_dataset_and_unported_parsers(tmp_path):
              y=rng.integers(0, 3, 50), edge_index=rng.integers(0, 50, (2, 80)))
     _same_data(TDS.load_data("toy", 1, root=str(tmp_path)),
                JDS.load_data("toy", 1, root=str(tmp_path)))
-    for name in ("cora", "texas"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            TDS.load_data(name, root=str(tmp_path))
+    # the raw-file parsers (ported since): absent files raise as in JAX
+    for name, what in (("cora", "Planetoid"), ("texas", "geom-gcn")):
+        for pkg in (TDS, JDS):
+            with pytest.raises(FileNotFoundError, match=f"{what} raw files"):
+                pkg.load_data(name, root=str(tmp_path))
     with pytest.raises(ValueError, match="Unknown dataset"):
         TDS.load_data("nothing", root=str(tmp_path))
 

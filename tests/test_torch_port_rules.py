@@ -55,6 +55,20 @@ def test_no_sklearn_or_yaml_at_module_level(path):
     assert not top & {"sklearn", "yaml"}, path
 
 
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_no_matplotlib_or_scipy_at_module_level(path):
+    """The card has no matplotlib: the plots import it, and the Planetoid
+    parser scipy, only inside the function that needs it."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.add(node.module.split(".")[0])
+    assert not top & {"matplotlib", "scipy"}, path
+
+
 def test_no_jax_module_loaded_by_the_package():
     mods = ", ".join(
         "laplace_gnn_torch." + ".".join(p.relative_to(
@@ -65,6 +79,26 @@ def test_no_jax_module_loaded_by_the_package():
         f"for m in '{mods}'.split(', '):\n"
         "    importlib.import_module(m)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_plotting_or_sklearn_module_loaded_by_the_package():
+    """Importing every module of the package (as chip_smoke.py's imports
+    reach them) loads no matplotlib, scikit-learn or scipy."""
+    mods = ", ".join(
+        "laplace_gnn_torch." + ".".join(p.relative_to(
+            REPO / "laplace_gnn_torch").with_suffix("").parts)
+        for p in _package_files() if p.name != "__init__.py")
+    code = (
+        "import importlib, sys\n"
+        f"for m in '{mods}'.split(', '):\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('matplotlib', 'sklearn', 'scipy')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -105,6 +139,14 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
     with pytest.raises(RuntimeError):
         marglik_optimization(m, m.params(), np.arange(5), np.zeros(5, int),
                              n_epochs=1, verbose=False)
+    from laplace_gnn_torch.training import marglik_optimization_scan
+    split = (np.arange(5), np.zeros(5, int), np.arange(5, 8),
+             np.zeros(3, int))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        marglik_optimization_scan(m, m.params(), *split, n_epochs=1)
+    out = marglik_optimization_scan(m, m.params(), *split, n_epochs=1,
+                                    device="cpu")
+    assert out[1]["adj"].device.type == "cpu" and out[2].shape == (1,)
     from laplace_gnn_torch.laplace.marglik import marglik_training
     from laplace_gnn_torch.nn import CNN, MLP, Conv2d
     with pytest.raises(RuntimeError, match="device='cpu'"):
