@@ -170,8 +170,9 @@ Phases, each fatal:
      (in a process of its own); a 16-epoch dropout run and a 20-epoch run
      with learned-graph snapshots against the eager loop (the files
      deleted after); then on a small graph the card in float32 against
-     the CPU in float64, and the diagonal curvature (every step captured)
-     against the eager loop;
+     the CPU in float64, a run captured while a dead run's graphs await
+     collection (a collection forced at each capture's start), and the
+     diagonal curvature (every step captured) against the eager loop;
  17. hold ``core_spmm`` against its plain version, untimed, at every
      (N, d, adjacency mode, t dtype, transpose) that phases 2-16 launched
      and no earlier check covered (each launch's shape is recorded as it
@@ -2883,6 +2884,36 @@ except Exception as e:
 """
 
 
+DEAD_GRAPH_CAPTURE = r"""
+import gc
+import torch
+gc.disable()
+x = torch.ones(1024, device="cuda")
+s = torch.cuda.Stream()
+s.wait_stream(torch.cuda.current_stream())
+with torch.cuda.stream(s):
+    x * 2
+    x + 1
+torch.cuda.current_stream().wait_stream(s)
+class Run:
+    pass
+dead = Run()
+dead.cycle = dead
+dead.graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(dead.graph):
+    dead.y = x * 2
+del dead
+g = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.graph(g):
+        gc.collect()
+        x + 1
+    print("CAPTURED")
+except Exception as e:
+    print("REFUSED", type(e).__name__, str(e).splitlines()[0][:160])
+"""
+
+
 def _trace_gap(a, b) -> float:
     """Largest |a - b| / |b| over two traces."""
     return max(abs(float(x) - float(z)) / max(abs(float(z)), 1e-30)
@@ -3118,12 +3149,60 @@ def phase_whole_run(torch, np, card):
     return out
 
 
+def _dead_run_at_capture(torch, run):
+    """``run()`` twice, the first run dead (its model, program and CUDA
+    graphs freed only by a collection: they refer to each other) when the
+    second captures, and a collection forced at the start of each capture,
+    as an automatic one may fall there: freeing a dead graph during a
+    capture invalidates it (shown first with torch alone, in a process of
+    its own: a report). The second run must capture and give the first
+    one's traces. Returns the objects those collections found."""
+    import gc
+
+    # why: torch alone, a dead captured graph collected during a capture
+    r = subprocess.run([sys.executable, "-c", DEAD_GRAPH_CAPTURE],
+                       capture_output=True, text=True, timeout=120)
+    raw = next((l for l in r.stdout.splitlines()
+                if l.startswith(("CAPTURED", "REFUSED"))),
+               f"no answer: {r.stderr[-300:]}")
+    print(f"a dead CUDA graph collected during a capture (torch alone): "
+          f"{raw}", flush=True)
+    enabled = gc.isenabled()
+    enter = torch.cuda.graph.__enter__
+    found = []
+
+    def collecting_enter(self):
+        out = enter(self)
+        found.append(gc.collect())
+        return out
+
+    gc.disable()
+    try:
+        first = run()[2:]
+        torch.cuda.graph.__enter__ = collecting_enter
+        second = run()[2:]
+    finally:
+        torch.cuda.graph.__enter__ = enter
+        if enabled:
+            gc.enable()
+    gap = max(_trace_gap(a, b) for a, b in zip(second, first))
+    print(f"dead whole run pending at the next capture: {len(found)} "
+          f"captures, each with a collection at its start finding "
+          f"{sorted(set(found))} objects; traces against the first run's "
+          f"{gap}", flush=True)
+    if gap != 0:
+        raise AssertionError(f"dead run at capture: traces part by {gap}")
+    return {"captures": len(found), "collected": found,
+            "torch_alone": raw}
+
+
 def phase_whole_run_small(torch, np):
     """The whole run on a small graph, the card in float32 against the CPU
     in float64 (1e-4 relative on the traces for the composed model, 1e-2
-    through the kernel); and the diagonal curvature, whose -log marglik
-    evaluation and hyperstep replay from graphs too, against the eager
-    loop on the card."""
+    through the kernel); a run that captures while a dead one awaits
+    collection (``_dead_run_at_capture``); and the diagonal curvature,
+    whose -log marglik evaluation and hyperstep replay from graphs too,
+    against the eager loop on the card."""
     from laplace_gnn_torch.models import STEGCN
     from laplace_gnn_torch.training.marglik_gnn import (
         _model_program_cache, marglik_optimization,
@@ -3156,6 +3235,14 @@ def phase_whole_run_small(torch, np):
         if not gap <= tol:
             raise AssertionError(f"small whole run fused={fused}: {gap}")
         out[f"fused={fused}"] = gap
+
+    def composed_run():
+        m = STEGCN(f, 16, N_CLASS, 2, X, adj, dropout_p=0.0, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+        return marglik_optimization_scan(m, m.params(), *split,
+                                         device="cuda", **kw)
+
+    out["dead_run_at_capture"] = _dead_run_at_capture(torch, composed_run)
     m = STEGCN(f, 16, N_CLASS, 2, X, adj, dropout_p=0.0, fused=True,
                device="cuda", generator=torch.Generator().manual_seed(0))
     diag = dict(kw, hessian_structure="diag")

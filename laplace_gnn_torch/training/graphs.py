@@ -11,6 +11,7 @@ into a graph once per replay (``ops/launches.py``).
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Sequence
 
 import torch
@@ -57,7 +58,12 @@ def capture(steps: Sequence[Step], generators=()) -> None:
     that a capture may not, then one capture each. Each ``generators``
     entry is registered with every graph, so a replay draws from it what
     the eager call would and advances it as far. The warm-up calls change
-    the state that the steps own: the caller resets it before a run."""
+    the state that the steps own: the caller resets it before a run.
+
+    Python's cyclic garbage collector is run before the captures and held
+    off during them: a dead run (its steps and it refer to each other)
+    dies only in a collection, and freeing its graphs while a stream
+    captures invalidates the capture, which then fails at its end."""
     todo = [s for s in steps if s.capture and s.graph is None]
     if not todo:
         return
@@ -68,14 +74,21 @@ def capture(steps: Sequence[Step], generators=()) -> None:
             for s in todo:
                 s.fn()
     torch.cuda.current_stream().wait_stream(side)
-    for s in todo:
-        graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            graph.register_generator_state(gen)
-        before = {k: k.recorded for k in KERNELS}
-        with torch.cuda.graph(graph):
-            s.fn()
-        s.recorded = {k: k.recorded - n for k, n in before.items()
-                      if k.recorded != n}
-        s.graph = graph
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for s in todo:
+            graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                graph.register_generator_state(gen)
+            before = {k: k.recorded for k in KERNELS}
+            with torch.cuda.graph(graph):
+                s.fn()
+            s.recorded = {k: k.recorded - n for k, n in before.items()
+                          if k.recorded != n}
+            s.graph = graph
+    finally:
+        if enabled:
+            gc.enable()
     torch.cuda.synchronize()

@@ -336,3 +336,65 @@ def test_step_counts_launches_of_calls_and_replays():
     assert (core.launches, core.replayed, step.calls) == (6, 4, 3)
     assert step.launches == {"core_spmm": 6}
     core.launches, core.replayed = saved
+
+
+def test_capture_collects_dead_graphs_first_and_holds_gc_off():
+    """Freeing a dead CUDA graph while a stream captures invalidates the
+    capture, and a dead run (its steps and it refer to each other) is
+    freed only by a collection: ``capture`` collects before its captures
+    and holds the collector off during them, then restores it (the CUDA
+    calls are faked: the CPU has no graph to capture)."""
+    import gc
+    from contextlib import contextmanager
+
+    from laplace_gnn_torch.training.graphs import Step, capture
+    events = []
+
+    class Dead:                                  # a dead run's graph
+        def __del__(self):
+            events.append("dead graph freed")
+
+    class FakeGraph:
+        def register_generator_state(self, gen):
+            pass
+
+    @contextmanager
+    def fake_capture(graph):
+        events.append(("capture", gc.isenabled()))
+        yield
+        events.append(("capture ends", gc.isenabled()))
+
+    class FakeStream:
+        def wait_stream(self, other):
+            pass
+
+    def fn():
+        events.append(("fn", gc.isenabled()))
+
+    cuda = torch.cuda
+    with mock.patch.object(cuda, "Stream", FakeStream), \
+            mock.patch.object(cuda, "current_stream", FakeStream), \
+            mock.patch.object(cuda, "stream", lambda s: mock.MagicMock()), \
+            mock.patch.object(cuda, "CUDAGraph", FakeGraph), \
+            mock.patch.object(cuda, "graph", fake_capture), \
+            mock.patch.object(cuda, "synchronize", lambda: None):
+        for enabled in (True, False):
+            (gc.enable if enabled else gc.disable)()
+            try:
+                events.clear()
+                dead = Dead()
+                dead.cycle = dead
+                del dead
+                step = Step("s", fn, capture=True)
+                capture([step])
+                assert gc.isenabled() is enabled
+            finally:
+                gc.enable()
+            # freed by the time the capture starts: by capture's own
+            # collection, or by an automatic one before it
+            assert (events.index("dead graph freed")
+                    < events.index(("capture", False)))
+            warm = [("fn", enabled)] * 2
+            assert [e for e in events if e != "dead graph freed"] == warm + [
+                ("capture", False), ("fn", False), ("capture ends", False)]
+            assert isinstance(step.graph, FakeGraph)
