@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only matmul     # build + phase 7, kernel work
     python3 chip_smoke.py --only core_spmm  # build + phase 2, kernel work
     python3 chip_smoke.py --only flash      # build + phase 4, kernel work
+    python3 chip_smoke.py --only sparse     # phase 18 alone, no build
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
@@ -176,15 +177,38 @@ Phases, each fatal:
  17. hold ``core_spmm`` against its plain version, untimed, at every
      (N, d, adjacency mode, t dtype, transpose) that phases 2-16 launched
      and no earlier check covered (each launch's shape is recorded as it
-     is made), so no plan that the run chose goes unchecked; it stays the
-     last phase.
+     is made), so no plan that the run chose goes unchecked; it comes
+     after every phase that launches the kernel;
+ 18. the sparse scale path, which reaches no kernel (as in JAX): the C++
+     graph packer must have built; the SpMM of ``FastAggGraph`` on each
+     tier (segment, ELL, ELL + overflow levels + remainder) in float32
+     and bf16, forward, backward, vmap and jvp against the dense float64
+     product, two calls the same bits, and the ELL GAT attention against
+     the segment path, on small graphs; then an ogbn-arxiv-shaped npz
+     (169,343 nodes, 128 features, 40 classes, ~1.17 M undirected edges
+     with three hubs of ~11.7k) at the width of
+     scripts/bench_laplace_scale.py (hidden 256, 2 layers): the full-size
+     SpMM (two calls and two backward calls the same bits, against the
+     float64 segment path, timed), then ``sparse_experiment.main`` as a
+     user runs it: SparseGCN for 400 steps at the CLI's defaults
+     (last-layer Kron, ELL, bf16 aggregation), the same in two
+     checkpointed halves of 200 (the resumed run's NLLs within 1e-5 of
+     the straight run's), SparseGCN over all weights with a type-2 sketch
+     of 8 in chunks of 4 columns (50 steps), SparseSAGE (100 steps) and
+     SparseGAT over all weights with the mc Fisher and 2 Hutchinson
+     probes a batch of 2 (50 steps),
+     each with its K, levels and remainder, its train-step ms (CUDA
+     events), fit-and-tuning and predictive seconds, peak memory and the
+     four kernels' launches (0); and whether SparseGAT's weight gradient
+     is the same bits twice.
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
 it runs phases 1 (``matmul.cu`` alone) and 7, and its last line is
 ``{"partial": ["matmul"]}``, never the ``ok`` line; ``--only
 core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2, and
-``--only flash`` phases 1 (``flash_attention.cu`` alone) and 4. Exits
+``--only flash`` phases 1 (``flash_attention.cu`` alone) and 4, and
+``--only sparse`` phase 18 alone (it builds no kernel). Exits
 non-zero, with no result, when there is no CUDA device or the package is
 not beside it.
 Per-shape measurements also go to ``chiprun_out/chip_smoke.json``, and
@@ -3258,6 +3282,342 @@ def phase_whole_run_small(torch, np):
     return out
 
 
+# ogbn-arxiv's published shape (OGB: 169,343 nodes, 1,166,243 undirected
+# edges, 128 features, 40 classes, largest degree ~13k) and the model of
+# scripts/bench_laplace_scale.py (hidden 256, 2 layers)
+ARXIV_N, ARXIV_F, ARXIV_C, ARXIV_E = 169343, 128, 40, 1166243
+ARXIV_MAX_DEG = 13000
+SPARSE_HIDDEN, SPARSE_LAYERS = 256, 2
+
+
+def arxiv_like(np, seed: int = 13):
+    """(x, y, edge_index) of ogbn-arxiv's shape: class-informative Gaussian
+    features as ``sbm_dataset`` makes them (signal 3 / sqrt(F)), and a
+    Chung-Lu graph whose expected degrees follow a power law (exponent 2.5,
+    capped at ARXIV_MAX_DEG, which three hubs reach) with 65% of the edges
+    inside a class; the undirected edges are deduplicated and stored both
+    ways."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, ARXIV_C, ARXIV_N)
+    means = rng.normal(0, 1.0, (ARXIV_C, ARXIV_F)) * 3 / math.sqrt(ARXIV_F)
+    x = (means[y] + rng.normal(0, 1.0, (ARXIV_N, ARXIV_F))).astype(
+        np.float32)
+    w = (1 - rng.random(ARXIV_N)) ** (-1 / 1.5)
+    cap = ARXIV_MAX_DEG * w.sum() / (2 * ARXIV_E)
+    w = np.minimum(w, cap)
+    # three hubs near the largest degree, once their repeated draws are
+    # dropped as duplicates
+    w[np.argsort(w)[-3:]] = 2.2 * cap
+    cum = np.cumsum(w)
+    a = np.searchsorted(cum, rng.random(ARXIV_E) * cum[-1])
+    b = np.searchsorted(cum, rng.random(ARXIV_E) * cum[-1])
+    # the homophilous edges draw their second end by weight within a's class
+    order = np.argsort(y, kind="stable")
+    ccum = np.cumsum(w[order])
+    ends = np.searchsorted(y[order], np.arange(ARXIV_C + 1))
+    lo = np.where(ends[:-1] > 0, ccum[np.maximum(ends[:-1] - 1, 0)], 0.0)
+    hi = ccum[ends[1:] - 1]
+    homo = rng.random(ARXIV_E) < 0.65
+    c = y[a[homo]]
+    t = lo[c] + rng.random(len(c)) * (hi[c] - lo[c])
+    b[homo] = order[np.minimum(np.searchsorted(ccum, t), ARXIV_N - 1)]
+    keep = a != b
+    pairs = np.unique(np.minimum(a, b)[keep] * ARXIV_N
+                      + np.maximum(a, b)[keep])
+    u, v = pairs // ARXIV_N, pairs % ARXIV_N
+    return x, y, np.stack([np.concatenate([u, v]), np.concatenate([v, u])])
+
+
+def _spmm_checks(torch, np, C, g, label, tol):
+    """The SpMM of ``g`` on the card (forward, backward, vmap over 3 and
+    jvp) against the dense float64 product; two forward calls must give
+    the same bits. Returns the largest relative error."""
+    f = C.make_spmm(g)
+    dense = g.to_dense().double()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(g.n_nodes, 9, device="cuda", generator=gen)
+    ct = torch.randn(g.n_nodes, 9, device="cuda", generator=gen)
+    xb = torch.randn(3, g.n_nodes, 9, device="cuda", generator=gen)
+    out = f(x.requires_grad_(True))
+    (gx,) = torch.autograd.grad(out, x, ct)
+    _, tang = torch.func.jvp(f, (x.detach(),), (ct,))
+    errs = {"forward": _rel(out, dense @ x.double()),
+            "backward": _rel(gx, dense.T @ ct.double()),
+            "vmap": _rel(torch.func.vmap(f)(xb), dense @ xb.double()),
+            "jvp": _rel(tang, dense @ ct.double())}
+    if not torch.equal(f(x.detach()), f(x.detach())):
+        raise AssertionError(f"sparse {label}: two SpMM calls differ")
+    if max(errs.values()) > tol:
+        raise AssertionError(f"sparse {label}: {errs} above {tol}")
+    return errs
+
+
+def phase_sparse_small(torch, np):
+    """Phase 18's small checks: the C++ packer is built; the SpMM on each
+    tier (segment, ELL, ELL + levels + remainder) in float32 and bf16
+    against the dense float64 product; the ELL GAT attention against the
+    segment path."""
+    import dataclasses
+    from laplace_gnn_torch import native
+    from laplace_gnn_torch.graph import container as C
+    from laplace_gnn_torch.models import SparseGAT
+    if not native.available():
+        raise AssertionError("the C++ graph packer did not build")
+    rng = np.random.default_rng(0)
+    n = 120             # a hub, a mid-degree cluster and random edges
+    src = np.concatenate([np.arange(1, n), rng.integers(0, n, 300),
+                          np.tile(np.arange(40, 60), 3)])
+    dst = np.concatenate([np.zeros(n - 1, int), rng.integers(0, n, 300),
+                          np.repeat(np.arange(1, 4), 20)])
+    ei = np.stack([src, dst])
+    out = {}
+    for norm in ("sym", "row"):
+        g = C.sparse_from_edge_index(ei, n, normalize=norm, device="cuda")
+        three = C.add_ell_format(g, max_k=2, pad_budget=1.2)
+        if not (three.ell_levels and three.has_remainder()):
+            raise AssertionError("the small graph has no level or remainder")
+        for tier, gt in (("segment", g), ("ell", C.add_ell_format(g)),
+                         ("three-tier", three)):
+            for agg, tol in ((None, 1e-5), ("bfloat16", 3e-2)):
+                label = f"{norm} {tier} {agg or 'float32'}"
+                out[label] = _spmm_checks(
+                    torch, np, C, dataclasses.replace(gt, agg_dtype=agg),
+                    label, tol)
+    # GAT: the ELL attention (levels and remainder) against the segment path
+    X = rng.standard_normal((n, 6))
+    g_seg = C.sparse_from_edge_index(ei, n, normalize=None, device="cuda")
+    outs = {}
+    for name, gg in (("segment", g_seg),
+                     ("ell", C.add_ell_format(g_seg, max_k=2))):
+        m = SparseGAT(6, 8, 4, 2, X, gg, heads=2, dropout_p=0.0,
+                      device="cuda")
+        outs[name] = m.apply(m.params())
+    out["gat ell vs segment"] = _rel(outs["ell"], outs["segment"])
+    if out["gat ell vs segment"] > 1e-5:
+        raise AssertionError(f"sparse GAT: ELL vs segment "
+                             f"{out['gat ell vs segment']}")
+    worst = max(max(v.values()) if isinstance(v, dict) else v
+                for v in out.values())
+    print(f"sparse small: C++ packer {native.library_path().name}; SpMM "
+          f"forward / backward / vmap / jvp on 3 tiers x 2 dtypes x 2 "
+          f"normalizations against dense f64, worst {worst:.3e}; two calls "
+          f"the same bits; GAT ELL vs segment "
+          f"{out['gat ell vs segment']:.3e}", flush=True)
+    return out
+
+
+def _graph_stats(torch, g) -> dict:
+    """The ELL shape of a packed graph: K, each level's (rows, K), the
+    remainder's edges and the largest degree."""
+    return {"E": g.n_edges, "K": int(g.ell_cols.shape[1]),
+            "levels": [list(c.shape) for _, c, _ in g.ell_levels],
+            "remainder_edges": int(g.rem_src.shape[0]),
+            "max_degree": int(torch.bincount(g.dst).max())}
+
+
+def phase_sparse(torch, np, kernels, card):
+    """Phase 18: the sparse scale path through its CLI
+    (``training/sparse_experiment.py::main``) on an ogbn-arxiv-shaped npz
+    at the width of scripts/bench_laplace_scale.py: the full-size SpMM
+    (two calls the same bits, against the float64 segment path), then the
+    runs of SPARSE_RUNS with every kernel count set to 0 just before each
+    and read just after (the path reaches no kernel, as in JAX), each with
+    its graph's ELL shape, train-step ms (CUDA events), fit-and-tuning and
+    predictive seconds and peak memory; the checkpointed run resumed must
+    end within 1e-5 of the straight run; and whether SparseGAT's weight
+    gradient is the same bits twice."""
+    import dataclasses
+    from laplace_gnn_torch import native
+    from laplace_gnn_torch.graph import container as C
+    from laplace_gnn_torch.training import sparse_experiment as se
+    d = os.path.join(ROOT, "chiprun_out", "sparse")
+    ckpt = os.path.join(d, "checkpoints")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    x, y, ei = arxiv_like(np)
+    np.savez(os.path.join(d, "arxivlike.npz"), x=x, y=y, edge_index=ei)
+    made = time.perf_counter() - t0
+    os.environ["LAPLACE_GNN_DATA"] = d
+    common = ["--dataset", "arxivlike", "--hidden_channels",
+              str(SPARSE_HIDDEN), "--num_layers", str(SPARSE_LAYERS)]
+    out = {"data_s": made, "n_nodes": ARXIV_N,
+           "directed_edges": int(ei.shape[1]),
+           "packer": "C++" if native.available() else "numpy"}
+    try:
+        # the full-size SpMM at the hidden width, bf16 aggregation (the
+        # CLI's default) and float32, against the float64 segment path
+        args = se.argument_parser().parse_args(common)
+        data_g = se.build_graph(args, argparse.Namespace(
+            edge_index=ei, num_nodes=ARXIV_N), device="cuda")
+        f = C.make_spmm(data_g)
+        f32 = C.make_spmm(dataclasses.replace(data_g, agg_dtype=None))
+        ref = dataclasses.replace(data_g, format="segment", agg_dtype=None)
+        xs = torch.randn(ARXIV_N, SPARSE_HIDDEN, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+        want = C.make_spmm(dataclasses.replace(
+            ref, weights=ref.weights.double()))(xs.double())
+        same = torch.equal(f(xs), f(xs)) and torch.equal(f32(xs), f32(xs))
+        gx = [torch.autograd.grad(f(xs.requires_grad_(True)), xs,
+                                  torch.ones_like(xs))[0] for _ in range(2)]
+        same = same and torch.equal(gx[0], gx[1])
+        xs = xs.detach()
+        out["spmm"] = {
+            **_graph_stats(torch, data_g), "same_bits": same,
+            "bf16_rel": _rel(f(xs), want), "f32_rel": _rel(f32(xs), want),
+            "ms_bf16": cold_ms(torch, lambda: f(xs)),
+            "ms_f32": cold_ms(torch, lambda: f32(xs)),
+            "ms_segment_f32": cold_ms(torch, lambda: ref.spmm(xs))}
+        if not same:
+            raise AssertionError("the full-size SpMM gave other bits on a "
+                                 "second call")
+        if out["spmm"]["f32_rel"] > 1e-5 or out["spmm"]["bf16_rel"] > 3e-2:
+            raise AssertionError(f"full-size SpMM: {out['spmm']}")
+        if not (data_g.ell_levels and data_g.has_remainder()):
+            raise AssertionError(f"the arxiv-shaped graph has no overflow "
+                                 f"level or remainder: {out['spmm']}")
+        print(f"sparse data: N={ARXIV_N}, {ei.shape[1]} directed edges "
+              f"({made:.1f} s to make), packed by "
+              f"{out['packer']}; SpMM (N, {SPARSE_HIDDEN}) "
+              f"{out['spmm']}  [{card}]", flush=True)
+        del data_g, f, f32, ref, xs, want, gx
+        torch.cuda.empty_cache()
+        out["runs"] = _sparse_runs(torch, np, se, common, ckpt, kernels,
+                                   card)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+# the CLI runs of phase 18: (label, extra flags)
+SPARSE_RUNS = [
+    ("sparsegcn 400 steps", ["--n_steps", "400"]),
+    ("sparsegcn all, type-2-sketch k 8, column_chunk 4, 50 steps",
+     ["--n_steps", "50", "--subset_of_weights", "all", "--fisher_type",
+      "type-2-sketch", "--sketch_size", "8", "--column_chunk", "4"]),
+    ("sparsesage 100 steps", ["--model_type", "sparsesage",
+                              "--n_steps", "100"]),
+    # over all weights, so the attention vectors' diagonal takes the
+    # probes (the last layer's posterior has no attention vector)
+    ("sparsegat all, mc, 2 probes a batch of 2, 50 steps",
+     ["--model_type", "sparsegat", "--n_steps", "50", "--fisher_type",
+      "mc", "--diag_probes", "2", "--probe_batch", "2",
+      "--subset_of_weights", "all"]),
+]
+
+
+def _sparse_runs(torch, np, se, common, ckpt, kernels, card):
+    seen = {}
+
+    def wrap(name, fn, clock):
+        def wrapped(*args, **kwargs):
+            if clock == "events":
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(*args, **kwargs)
+                b.record()
+                b.synchronize()
+                seen.setdefault(name, []).append(
+                    (a.elapsed_time(b), args[-1]))
+                return out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen.setdefault(name, []).append(time.perf_counter() - t0)
+            if name == "build_graph":
+                seen["graph"] = out
+            if name == "build_model":
+                seen["model"] = out
+            return out
+        return wrapped
+
+    def run(label, argv):
+        seen.clear()
+        for k in kernels:
+            k.launches = 0
+        with mock.patch.object(se, "train_steps", wrap(
+                "train", se.train_steps, "events")), \
+                mock.patch.object(se, "fit_posterior", wrap(
+                    "fit", se.fit_posterior, "host")), \
+                mock.patch.object(se, "predict", wrap(
+                    "predict", se.predict, "host")), \
+                mock.patch.object(se, "build_graph", wrap(
+                    "build_graph", se.build_graph, "host")), \
+                mock.patch.object(se, "build_model", wrap(
+                    "build_model", se.build_model, "host")):
+            res, secs, gb = timed(torch, lambda: se.main(argv,
+                                                         device="cuda"))
+        launches = {k.name: k.launches for k in kernels}
+        if any(launches.values()):
+            raise AssertionError(f"sparse {label}: kernel launches "
+                                 f"{launches}")
+        steps = sum(n for _, n in seen["train"])
+        row = {"s": secs, "peak_gb": gb, "launches": launches,
+               **_graph_stats(torch, seen["graph"]),
+               "graph_s": sum(seen["build_graph"]),
+               "train_steps": steps,
+               "train_step_ms": sum(ms for ms, _ in seen["train"]) / steps,
+               "fit_and_tuning_s": sum(seen["fit"]),
+               "predictive_s": sum(seen["predict"]), "results": res}
+        for name in ("map", "laplace"):
+            r = res[name]
+            if not all(math.isfinite(r[k]) for k in ("acc", "nll", "ece")):
+                raise AssertionError(f"sparse {label}: {res}")
+        if res["map"]["acc"] < 1.0 / ARXIV_C + 0.2:
+            raise AssertionError(f"sparse {label}: MAP accuracy "
+                                 f"{res['map']['acc']} (1/C = "
+                                 f"{1 / ARXIV_C:.3f})")
+        print(f"sparse {label}: K={row['K']}, levels {row['levels']}, "
+              f"remainder {row['remainder_edges']} edges (graph "
+              f"{row['graph_s']:.2f} s); train step "
+              f"{row['train_step_ms']:.3f} ms (CUDA events, {steps} steps); "
+              f"fit + tuning {row['fit_and_tuning_s']:.3f} s; predictive "
+              f"{row['predictive_s']:.3f} s; run {secs:.2f} s, peak "
+              f"{gb:.2f} GB; launches {launches}; map {res['map']}, laplace "
+              f"{res['laplace']}  [{card}]", flush=True)
+        return row
+
+    rows = {}
+    gcn = common + SPARSE_RUNS[0][1]
+    rows[SPARSE_RUNS[0][0]] = run(SPARSE_RUNS[0][0], gcn)
+    # the same run in two checkpointed halves: 200 steps, then a restart
+    # that resumes at step 200 from the checkpoint, optimizer state and all
+    every = ["--checkpoint_dir", ckpt, "--checkpoint_every", "200"]
+    rows["checkpointed 200"] = run("sparsegcn 200 steps, checkpointed",
+                                   common + ["--n_steps", "200"] + every)
+    rows["resumed 200"] = run("sparsegcn resumed to 400 steps",
+                              gcn + every)
+    straight = rows[SPARSE_RUNS[0][0]]["results"]
+    resumed = rows["resumed 200"]["results"]
+    gap = max(abs(straight[k]["nll"] - resumed[k]["nll"])
+              for k in ("map", "laplace"))
+    rows["resume_nll_gap"] = gap
+    if gap > 1e-5:
+        raise AssertionError(f"resumed run {resumed} vs straight {straight}")
+    print(f"sparse resume: the NLLs of the resumed run are within {gap:.3e}"
+          f" of the straight run's", flush=True)
+    for label, extra in SPARSE_RUNS[1:]:
+        rows[label] = run(label, common + extra)
+    # SparseGAT's weight gradient twice on the last run's model (its
+    # gathers' backward adds rows with atomics)
+    model = seen["model"]
+    params = {k: v.requires_grad_(True) for k, v in model.init().items()}
+    yt = torch.as_tensor(np.arange(ARXIV_N) % ARXIV_C, device="cuda")
+    grads = [torch.autograd.grad(
+        torch.nn.functional.cross_entropy(model.apply(params), yt),
+        list(params.values())) for _ in range(2)]
+    rows["gat_grad_same_bits"] = all(
+        torch.equal(a, b) for a, b in zip(*grads))
+    rows["gat_grad_rel_gap"] = max(_rel(a, b) for a, b in zip(*grads))
+    print(f"sparse GAT gradient twice: same bits "
+          f"{rows['gat_grad_same_bits']}, largest relative gap "
+          f"{rows['gat_grad_rel_gap']:.3e}", flush=True)
+    return rows
+
+
 def build_kernels(cuda_build, out_dir, names=None):
     """Phase 1: build the named sources (default all), one nvcc each, all at
     once; each ptxas report goes to ``build_<source>.log``."""
@@ -3279,7 +3639,8 @@ def build_kernels(cuda_build, out_dir, names=None):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["matmul", "core_spmm", "flash"],
+    parser.add_argument("--only", choices=["matmul", "core_spmm", "flash",
+                                           "sparse"],
                         help="build and run this kernel's phase alone; "
                              "prints no ok line")
     args = parser.parse_args(argv)
@@ -3337,6 +3698,17 @@ def main(argv=None) -> int:
         print(card, flush=True)
         print(json.dumps({"partial": ["flash"]}), flush=True)
         return 0
+    counted = (fs.core, fa.flash_fwd, fa.flash_bwd, mm.matmul)
+    if args.only == "sparse":
+        sparse_small = phase_sparse_small(torch, np)
+        sparse = phase_sparse(torch, np, counted, card)
+        with open(os.path.join(out_dir, "chip_smoke_sparse.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "sparse": sparse,
+                       "sparse_small": sparse_small}, f, indent=1,
+                      default=str)
+        print(card, flush=True)
+        print(json.dumps({"partial": ["sparse"]}), flush=True)
+        return 0
     seconds = {}
 
     def phase(number, fn, *args):
@@ -3365,7 +3737,6 @@ def main(argv=None) -> int:
     gat_small = phase("6", phase_gat_small_reference, torch, np)
 
     mm_rows, mm_checks = phase("7", phase_matmul, torch, mm, peaks)
-    counted = (fs.core, fa.flash_fwd, fa.flash_bwd, mm.matmul)
     laplace = phase("8", phase_laplace_stegcn, torch, np, stegcn_state,
                     counted, card)
     laplace_small = phase("8", phase_laplace_small_reference, torch, np)
@@ -3398,6 +3769,9 @@ def main(argv=None) -> int:
     whole_small = phase("16", phase_whole_run_small, torch, np)
     torch.cuda.empty_cache()
     launched = phase("17", phase_core_launched, torch, fs)
+    torch.cuda.empty_cache()
+    sparse_small = phase("18", phase_sparse_small, torch, np)
+    sparse = phase("18", phase_sparse, torch, np, counted, card)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -3459,6 +3833,7 @@ def main(argv=None) -> int:
                    "curvature_engine_small": engine_small,
                    "whole_run": whole, "whole_run_small": whole_small,
                    "core_spmm_launched": launched,
+                   "sparse": sparse, "sparse_small": sparse_small,
                    "phase_seconds": seconds,
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

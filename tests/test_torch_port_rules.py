@@ -208,3 +208,69 @@ def test_flash_kernels_sum_without_atomics():
     bits: the source holds no atomic add."""
     src = (REPO / "laplace_gnn_torch" / "csrc" / "flash_attention.cu")
     assert "atomicAdd" not in src.read_text()
+
+
+def test_sparse_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu,
+                                                                tmp_path):
+    from laplace_gnn_torch.graph.container import sparse_from_edge_index
+    from laplace_gnn_torch.models import SparseGAT, SparseGCN, SparseSAGE
+    from laplace_gnn_torch.parallel import initialize
+    from laplace_gnn_torch.training.sparse_experiment import main
+    from laplace_gnn_torch.utils import (TrainCheckpointer, load_pytree,
+                                         save_pytree)
+
+    X, adj = _graph()
+    ei = np.array(np.nonzero(adj))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sparse_from_edge_index(ei, 10)
+    g = sparse_from_edge_index(ei, 10, device="cpu")
+    assert g.src.device.type == "cpu"
+    for cls, kw in ((SparseGCN, {}), (SparseSAGE, {}),
+                    (SparseGAT, {"heads": 2})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(4, 8, 4, 2, X, g, **kw)
+        m = cls(4, 8, 4, 2, X, g, device="cpu", **kw)
+        assert all(p.device.type == "cpu" for p in m.params().values())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--dataset", "karate", "--n_steps", "1"])
+    path = str(tmp_path / "t.pkl")
+    save_pytree(path, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_pytree(path)
+    assert load_pytree(path, device="cpu")["w"].device.type == "cpu"
+    ck = TrainCheckpointer(str(tmp_path / "ck"))
+    ck.save(1, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ck.latest()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize("localhost:1", 2, 0)       # raises before it connects
+
+
+def test_native_loader_reads_nothing_of_the_jax_package():
+    """A fresh process builds (or finds) the C++ packer and packs a graph;
+    an audit hook records every file it opens or loads: none is under
+    laplace_gnn_tpu/. The port's source is its own copy."""
+    from laplace_gnn_torch import native
+    code = (
+        "import sys\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda ev, args: opened.append(str(args[0])) "
+        "if ev in ('open', 'ctypes.dlopen') else None)\n"
+        "import numpy as np\n"
+        "from laplace_gnn_torch import native\n"
+        "from laplace_gnn_torch.graph import container\n"
+        "assert native.available()\n"
+        "g = container.sparse_from_edge_index(np.array([[0, 1], [1, 2]]), "
+        "3, device='cpu')\n"
+        "container.add_ell_format(g)\n"
+        "bad = [f for f in opened if 'laplace_gnn_tpu' in f]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert native.SRC.parent == REPO / "laplace_gnn_torch" / "native"
+    assert native.library_path().parent == REPO / "laplace_gnn_torch" / \
+        "_build"
+    assert native.SRC.read_bytes() == (
+        REPO / "laplace_gnn_tpu" / "native" / "graph_prep.cpp").read_bytes()
