@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only core_spmm  # build + phase 2, kernel work
     python3 chip_smoke.py --only flash      # build + phase 4, kernel work
     python3 chip_smoke.py --only sparse     # phase 18 alone, no build
+    python3 chip_smoke.py --only parallel   # build + phase 19
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
@@ -200,7 +201,32 @@ Phases, each fatal:
      each with its K, levels and remainder, its train-step ms (CUDA
      events), fit-and-tuning and predictive seconds, peak memory and the
      four kernels' launches (0); and whether SparseGAT's weight gradient
-     is the same bits twice.
+     is the same bits twice;
+ 19. the single-axis scale-out layer (``laplace_gnn_torch/parallel``) on
+     a real NCCL group of world size ``torch.cuda.device_count()`` (one
+     card: 1), joined through ``parallel.initialize`` on a free local
+     port and destroyed after: (a) GAT at N = 16384 on the row-sharded
+     flash attention against the unsharded flash attention (one step to
+     the same bits, then 20 steps each by CUDA events with peak memory
+     and the flash launches, which must be 2 + 2 a step), and a GAT Kron
+     hyperstep at N = 2708 through ``jvp_safe()`` (the plain twin; the
+     -log marglik within 1e-3 of the unsharded one, d/d adj zero); (b)
+     P = 4 row blocks (R = 4096) on the one card, each rank's body with
+     a_src and h gathered by hand, against the unsharded flash call
+     (rows and summed gradients within 1e-4 of the largest entry), each
+     block's kernels against their plain versions (``flash_check``), the
+     pair timed at R = 4096 beside the plain versions and the bound; (c)
+     SparseGCN at ogbn-arxiv's shape through HaloAggGraph (the local path
+     at one part), its train step timed; RCM order, edge-balanced blocks
+     padded to one width, both halo plans and every rank's body against
+     the whole SpMM (1e-5, twice the same bits), each schedule's
+     comm_volume_ratio and the projected scaling at 2 / 4 / 8 GPUs from
+     the measured SpMM; the halo GAT's P = 4 bodies on a 4096-node cut;
+     (d) ``make_sharded_train_step`` on STE-GCN at Cora's width, fused
+     (``core_spmm``, launches counted) and composed (the adjacency's row
+     blocks), 10 steps each the same bits as the unsharded steps, and an
+     AttSTEGCN Kron hyperstep with ``adj_constraint`` (value and d/d
+     adj_W within 1e-4 of the unsharded ones).
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -208,7 +234,9 @@ it runs phases 1 (``matmul.cu`` alone) and 7, and its last line is
 ``{"partial": ["matmul"]}``, never the ``ok`` line; ``--only
 core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2, and
 ``--only flash`` phases 1 (``flash_attention.cu`` alone) and 4, and
-``--only sparse`` phase 18 alone (it builds no kernel). Exits
+``--only sparse`` phase 18 alone (it builds no kernel), ``--only
+parallel`` phases 1 (``core_spmm.cu`` and ``flash_attention.cu``) and
+19. Exits
 non-zero, with no result, when there is no CUDA device or the package is
 not beside it.
 Per-shape measurements also go to ``chiprun_out/chip_smoke.json``, and
@@ -3618,6 +3646,505 @@ def _sparse_runs(torch, np, se, common, ckpt, kernels, card):
     return rows
 
 
+# -- phase 19: the single-axis scale-out layer (laplace_gnn_torch/parallel) --
+
+P_CARD = 4                  # the parts held by calling each rank's body
+SHARD_STEPS = 20            # timed train steps of the row-sharded GAT
+STEP_REF_MS = 7.168         # PERF.md: the flash GAT train step, N = 16384
+SPARSE_REF_MS = 12.183      # PERF.md: phase 18's SparseGCN train step
+F32_ATTN_TOL = 1e-4         # flash kernels against the plain attention,
+                            # relative to the largest entry (phase 4)
+F32_SPMM_TOL = 1e-5         # f32 SpMM against the f32 segment path (18)
+F32_GAT_NM_TOL = 1e-3       # the GAT -log marglik, relative (phase 6)
+F32_GRAD_TOL = 1e-4         # gradients, relative (phases 6 and 12)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _events_ms(torch, fn, reps: int):
+    """(median, all) CUDA-event ms of ``reps`` calls of ``fn``."""
+    ms = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return sorted(ms)[len(ms) // 2], ms
+
+
+def _same_params(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _rel_max(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def parallel_gat(torch, P, fa, mesh, card):
+    """(a): GAT at N = 16384 (scripts/bench_gat_scale.py's configuration)
+    on the row-sharded attention with the flash kernels against the
+    unsharded flash attention: one step from the same parameters to the
+    same bits, then SHARD_STEPS timed steps of each with the flash launches
+    counted; and one Kron hyperstep at N = 2708 through ``jvp_safe()``."""
+    from laplace_gnn_torch.training.marglik_gnn import make_neg_marglik_fn
+    n = GAT_N_KERNEL
+    X, adj, y = gat_graph(torch, n, seed=4)
+    idx = torch.randperm(n, generator=torch.Generator().manual_seed(0))[
+        :n // 10].to("cuda")
+    yy = y[idx]
+    impl = P.make_row_sharded_gat_attention(mesh, use_flash=True)
+    out = {}
+    progs = {}
+    for name, attn in (("sharded", impl), ("unsharded", "flash")):
+        progs[name] = gat_programs(gat_model(torch, X, adj, attn),
+                                   int(idx.shape[0]))
+        progs[name].train_step(idx, yy)
+    torch.cuda.synchronize()
+    same = _same_params(torch, progs["sharded"].params,
+                        progs["unsharded"].params)
+    if not same:
+        raise AssertionError("row-sharded GAT step at world size 1: other "
+                             "bits than the unsharded flash step")
+    for name, pr in progs.items():
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        med, ms = _events_ms(torch, lambda: pr.train_step(idx, yy),
+                             SHARD_STEPS)
+        launches = {"flash_fwd": fa.flash_fwd.launches,
+                    "flash_bwd": fa.flash_bwd.launches}
+        if launches != {"flash_fwd": 2 * SHARD_STEPS,
+                        "flash_bwd": 2 * SHARD_STEPS}:
+            raise AssertionError(f"{name} GAT steps launched {launches}")
+        out[name] = {"median_ms": med, "ms": ms, "launches": launches,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["same_bits_one_step"] = same
+    del pr
+    print(f"parallel (a) row-sharded GAT N={n}, P={mesh.size(0)} (NCCL): "
+          f"train step median {out['sharded']['median_ms']:.3f} ms over "
+          f"{SHARD_STEPS} (CUDA events), unsharded flash "
+          f"{out['unsharded']['median_ms']:.3f} ms (PERF.md {STEP_REF_MS} "
+          f"ms); peak {out['sharded']['peak_gb']:.2f} / "
+          f"{out['unsharded']['peak_gb']:.2f} GB; flash launches "
+          f"{out['sharded']['launches']}; one step the same bits as the "
+          f"unsharded step: {same}  [{card}]", flush=True)
+    del progs, X, adj
+    torch.cuda.empty_cache()
+    # one Kron hyperstep at N = 2708 through jvp_safe(): the sharded
+    # model's curvature takes the plain twin with the same sharding
+    X, adj, y = gat_graph(torch, GAT_N_TRAIN, seed=5)
+    idx = torch.arange(N_TRAIN, device="cuda")
+    nm = {}
+    for name, attn in (("sharded", impl), ("unsharded", "flash")):
+        model = gat_model(torch, X, adj, attn)
+        twin = model.jvp_safe().convs[0].attention_impl
+        if name == "sharded" and not (isinstance(
+                twin, type(impl)) and twin.use_flash is False):
+            raise AssertionError(f"jvp_safe kept {twin}")
+        fn = make_neg_marglik_fn(model, "classification", "kron", "all",
+                                 N=N_TRAIN)
+        # the trainer's hyperstep: the -log marglik and its gradient in
+        # the adjacency (structurally zero for GAT: a mask), the weights
+        # held fixed
+        p = {k: v.detach().requires_grad_(k == "adj")
+             for k, v in model.params().items()}
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        val = fn(p, idx, y[:N_TRAIN])
+        (g,) = torch.autograd.grad(val, [p["adj"]], allow_unused=True) \
+            if val.requires_grad else (None,)
+        torch.cuda.synchronize()
+        nm[name] = float(val.detach())
+        out[f"hyperstep_{name}"] = {
+            "s": time.perf_counter() - t0, "neg_marglik": nm[name],
+            "adj_grad_zero": g is None or not bool(g.any()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "flash_launches": fa.flash_fwd.launches + fa.flash_bwd.launches}
+        del model, fn, p, val, g
+    nm_rel = abs(nm["sharded"] - nm["unsharded"]) / abs(nm["unsharded"])
+    out["hyperstep_rel"] = nm_rel
+    if not (math.isfinite(nm["sharded"]) and nm_rel <= F32_GAT_NM_TOL
+            and out["hyperstep_sharded"]["adj_grad_zero"]
+            and out["hyperstep_sharded"]["flash_launches"] == 0):
+        raise AssertionError(f"sharded GAT hyperstep: {out}")
+    print(f"parallel (a) GAT Kron hyperstep N={GAT_N_TRAIN} via jvp_safe: "
+          f"sharded {out['hyperstep_sharded']['s']:.2f} s "
+          f"({out['hyperstep_sharded']['peak_gb']:.2f} GB), unsharded "
+          f"{out['hyperstep_unsharded']['s']:.2f} s "
+          f"({out['hyperstep_unsharded']['peak_gb']:.2f} GB); -log marglik "
+          f"relative gap {nm_rel:.2e} (bound {F32_GAT_NM_TOL}); d/d adj "
+          f"zero; flash launches 0", flush=True)
+    del X, adj
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_gat_p4(torch, S, fa, bw, card):
+    """(b): P = 4 row blocks of the N = 16384 attention on the one card:
+    each rank's post-collective body (``row_attention`` on the flash
+    kernels, R = 4096) with a_src and h gathered by hand; the rows
+    concatenated, and the gradients summed as the all-gather's transpose
+    sums them, against the unsharded flash call (f32 bound
+    F32_ATTN_TOL of the largest entry); each block's kernels against
+    their plain versions (``flash_check``) and timed at R = 4096."""
+    n, H, F = GAT_N_KERNEL, GAT_HEADS, GAT_HIDDEN // GAT_HEADS
+    _, adj, _ = gat_graph(torch, n, seed=4)
+    adj.fill_diagonal_(1.0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    a_src = torch.randn(n, H, device="cuda", generator=gen)
+    a_dst = torch.randn(n, H, device="cuda", generator=gen)
+    h = torch.randn(n, H, F, device="cuda", generator=gen)
+    g = torch.randn(n, H, F, device="cuda", generator=gen)
+    r = n // P_CARD
+    leaves = [t.clone().requires_grad_(True) for t in (a_src, a_dst, h)]
+    whole = fa.flash_masked_attention(leaves[0], leaves[1], adj, leaves[2],
+                                      0.2)
+    want_g = torch.autograd.grad(whole, leaves, g)
+    outs, d_src, d_dst, d_h = [], 0, [], 0
+    errs, failures, rows = {}, [], []
+    for p in range(P_CARD):
+        blk = slice(p * r, (p + 1) * r)
+        leaves_p = [t.clone().requires_grad_(True)
+                    for t in (a_src, a_dst[blk], h)]
+        o = S.row_attention(leaves_p[0], leaves_p[1], adj[blk], leaves_p[2],
+                            0.2, use_flash=True)
+        gs = torch.autograd.grad(o, leaves_p, g[blk])
+        outs.append(o.detach())
+        d_src = d_src + gs[0]
+        d_dst.append(gs[1])
+        d_h = d_h + gs[2]
+        _, _, _, e, fl = flash_check(torch, fa, a_src, a_dst[blk], adj[blk],
+                                     h, g[blk], None, f"row block {p}")
+        errs[p] = e
+        failures += fl
+    got = {"out": torch.cat(outs), "d_a_src": d_src,
+           "d_a_dst": torch.cat(d_dst), "d_h": d_h}
+    want = {"out": whole.detach(), "d_a_src": want_g[0],
+            "d_a_dst": want_g[1], "d_h": want_g[2]}
+    rel = {k: _rel_max(got[k], want[k]) for k in got}
+    if failures or max(rel.values()) > F32_ATTN_TOL:
+        raise AssertionError(f"P = {P_CARD} row blocks: {rel} {failures}")
+    # the pair at R = 4096 (block 0), timed beside the plain versions
+    blk = slice(0, r)
+    mask = adj[blk]
+    nnz = int((mask > 0).sum())
+    fwd = fa.flash_fwd(a_src, a_dst[blk], mask, h, 0.2)
+    timing = {}
+    for kern, call, plain, backward in (
+            ("flash_fwd",
+             lambda: fa.flash_fwd(a_src, a_dst[blk], mask, h, 0.2),
+             lambda: fa.flash_fwd_reference(a_src, a_dst[blk], mask, h,
+                                            0.2), False),
+            ("flash_bwd",
+             lambda: fa.flash_bwd(a_src, a_dst[blk], mask, h, g[blk], *fwd,
+                                  0.2),
+             lambda: fa.flash_bwd_reference(a_src, a_dst[blk], mask, h,
+                                            g[blk], *fwd, 0.2), True)):
+        bound, by = flash_bound(n, r, H, F, nnz, 4 * r * n, bw, backward)
+        timing[kern] = {"r": r, "ms": cold_ms(torch, call),
+                        "plain_ms": cold_ms(torch, plain, reps=5),
+                        "bound_ms": bound, "bound_by": by, "nnz": nnz}
+    print(f"parallel (b) P={P_CARD} row blocks of R={r} on one card: "
+          f"concatenated rows and summed gradients vs the unsharded flash "
+          f"call, max relative {max(rel.values()):.2e} (bound "
+          f"{F32_ATTN_TOL}); each block's kernels vs plain, worst "
+          f"{max(max(e.values()) for e in errs.values()):.2e}, two calls "
+          f"the same bits; at R={r}: fwd {timing['flash_fwd']['ms']:.3f} "
+          f"ms (plain {timing['flash_fwd']['plain_ms']:.3f}, bound "
+          f"{timing['flash_fwd']['bound_ms']:.4f}), bwd "
+          f"{timing['flash_bwd']['ms']:.3f} ms (plain "
+          f"{timing['flash_bwd']['plain_ms']:.3f}, bound "
+          f"{timing['flash_bwd']['bound_ms']:.4f})  [{card}]", flush=True)
+    del adj, a_src, a_dst, h, g, leaves, whole, want_g, got, want, fwd
+    torch.cuda.empty_cache()
+    return {"rel": rel, "kernel_errs": errs, "timing": timing}
+
+
+def _halo_bodies(torch, S, x, plan, ring: bool):
+    """Every rank's post-collective SpMM rows on one card: rank p's halo
+    table from the buffers the other blocks send it."""
+    B = int(plan["block"])
+    rps = [S.rank_plan(plan, p, "cuda") for p in range(P_CARD)]
+    blocks = [x[p * B:(p + 1) * B] for p in range(P_CARD)]
+    bufs = [S.halo_send(blocks[q], rps[q]) for q in range(P_CARD)]
+    outs = []
+    for p in range(P_CARD):
+        if ring:
+            halo = torch.cat([bufs[(p - s) % P_CARD][s - 1]
+                              for s in range(1, P_CARD)])
+        else:
+            halo = torch.stack([bufs[q][0][p] for q in range(P_CARD)]
+                               ).reshape((-1,) + tuple(x.shape[1:]))
+        outs.append(S.halo_rows(blocks[p], halo, rps[p]))
+    return torch.cat(outs)
+
+
+def parallel_sparse(torch, np, P, S, mesh, card):
+    """(c): SparseGCN at ogbn-arxiv's shape through HaloAggGraph on the
+    world-size-1 mesh (the local path), its train step timed; then P = 4
+    on the card: RCM order, edge-balanced blocks padded to one width, both
+    halo plans, every rank's post-collective body against the SpMM of
+    the whole graph, twice to the same bits; the schedules' volumes and
+    the projected scaling from the measured one-card SpMM; the halo GAT's
+    P = 4 bodies on a 4096-node cut."""
+    from laplace_gnn_torch.graph import container as C
+    from laplace_gnn_torch.models import SparseGCN
+    from laplace_gnn_torch.parallel import scaling
+    from laplace_gnn_torch.training import sparse_experiment as se
+    from laplace_gnn_torch.training.marglik_gnn import DeviceAdam
+    out = {}
+    t0 = time.perf_counter()
+    x, y, ei = arxiv_like(np)
+    out["data_s"] = time.perf_counter() - t0
+    common = ["--dataset", "arxivlike", "--hidden_channels",
+              str(SPARSE_HIDDEN), "--num_layers", str(SPARSE_LAYERS)]
+    g = se.build_graph(se.argument_parser().parse_args(common),
+                       argparse.Namespace(edge_index=ei, num_nodes=ARXIV_N),
+                       device="cuda")
+    hg = P.HaloAggGraph(mesh, g)
+    model = SparseGCN(ARXIV_F, SPARSE_HIDDEN, ARXIV_C, SPARSE_LAYERS,
+                      hg.put(torch.as_tensor(x)), hg, dropout_p=0.0,
+                      device="cuda")
+    params = {k: v.requires_grad_(True) for k, v in model.params().items()}
+    opt = DeviceAdam(params.values(), lr=1e-2)
+    tr = torch.arange(0, ARXIV_N, 10, device="cuda")
+    ytr = torch.as_tensor(y, device="cuda")[tr]
+    se.train_steps(model, params, opt, tr, ytr, 3)
+    torch.cuda.synchronize()
+    med, ms = _events_ms(
+        torch, lambda: se.train_steps(model, params, opt, tr, ytr, 1), 20)
+    out["halo_train_step"] = {"median_ms": med, "ms": ms,
+                              "schedule": hg.schedule, "stats": hg.stats}
+    print(f"parallel (c) SparseGCN at arxiv's shape through HaloAggGraph "
+          f"(world size 1, {hg.schedule}, local path): train step median "
+          f"{med:.3f} ms over 20 (CUDA events; phase 18's CLI step "
+          f"{SPARSE_REF_MS} ms)  [{card}]", flush=True)
+    del model, params, opt, hg, g
+    torch.cuda.empty_cache()
+    # P = 4 on the card, on the RCM-ordered graph padded to equal blocks
+    t0 = time.perf_counter()
+    order = P.rcm_order(ei, ARXIV_N)
+    ei_r, x_r = P.apply_node_order(ei, order, x)
+    offsets = P.edge_balanced_blocks(ei_r, ARXIV_N, P_CARD)
+    ei_p, n_p, node_map, x_p = P.pad_to_blocks(ei_r, offsets, x_r)
+    g4 = C.sparse_from_edge_index(ei_p, n_p, normalize="sym", device="cuda")
+    plans = {"alltoall": P.build_halo_exchange(g4, P_CARD),
+             "ring": P.build_ring_halo_exchange(g4, P_CARD)}
+    out["plan_s"] = time.perf_counter() - t0
+    xs = torch.randn(n_p, SPARSE_HIDDEN, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(3))
+    f = C.make_spmm(g4)
+    want = f(xs)
+    for name, plan in plans.items():
+        got = _halo_bodies(torch, S, xs, plan, name == "ring")
+        again = _halo_bodies(torch, S, xs, plan, name == "ring")
+        B = int(plan["block"])
+        cross = ((P_CARD - 1) * int(plan["H"]) if name == "alltoall"
+                 else int(sum(plan["H_s"])))
+        row = {"rel": _rel(got, want), "same_bits": torch.equal(got, again),
+               "block": B, "halo_rows_per_device": cross,
+               "comm_volume_ratio": cross / (n_p * (P_CARD - 1) // P_CARD)}
+        if name == "ring":
+            row["H_s"] = plan["H_s"]
+        out[f"p4_{name}"] = row
+        if row["rel"] > F32_SPMM_TOL or not row["same_bits"]:
+            raise AssertionError(f"P = {P_CARD} halo SpMM ({name}): {row}")
+    spmm_ms = cold_ms(torch, lambda: f(xs))
+    proj = scaling.projected_scaling(g4, SPARSE_HIDDEN, spmm_ms / 1e3,
+                                     n_chips=(2, 4, 8))
+    out["spmm_ms"], out["projected"] = spmm_ms, proj
+    print(f"parallel (c) P={P_CARD} halo SpMM on one card (RCM, "
+          f"edge-balanced blocks padded to {n_p} nodes, plans "
+          f"{out['plan_s']:.1f} s): all_to_all rel "
+          f"{out['p4_alltoall']['rel']:.2e}, ring rel "
+          f"{out['p4_ring']['rel']:.2e} (bound {F32_SPMM_TOL}, against the "
+          f"whole SpMM), twice the same bits; comm_volume_ratio all_to_all "
+          f"{out['p4_alltoall']['comm_volume_ratio']:.4f}, ring "
+          f"{out['p4_ring']['comm_volume_ratio']:.4f} (H_s "
+          f"{out['p4_ring']['H_s']}); one-card SpMM {spmm_ms:.3f} ms  "
+          f"[{card}]", flush=True)
+    print("  projected (H100 NVLink 4.5e11 B/s, not measured):\n"
+          + scaling.format_table(proj), flush=True)
+    # the halo GAT's P = 4 bodies on a 4096-node cut of the ordered graph
+    n_c = 4096
+    keep = (ei_r[0] < n_c) & (ei_r[1] < n_c)
+    gc = C.sparse_from_edge_index(ei_r[:, keep], n_c, normalize=None,
+                                  device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    hgat = torch.randn(n_c, GAT_HEADS, 8, device="cuda", generator=gen)
+    att_s = torch.randn(1, GAT_HEADS, 8, device="cuda", generator=gen)
+    att_d = torch.randn(1, GAT_HEADS, 8, device="cuda", generator=gen)
+    ref = P.make_halo_gat_aggregate(mesh, gc)[0](hgat, att_s, att_d, 0.2)
+    for name, build in (("alltoall", P.build_halo_exchange),
+                        ("ring", P.build_ring_halo_exchange)):
+        plan = build(gc, P_CARD)
+        B = n_c // P_CARD
+        rps = [S.rank_plan(plan, p, "cuda") for p in range(P_CARD)]
+        blocks = [hgat[p * B:(p + 1) * B] for p in range(P_CARD)]
+        bufs = [S.halo_send(blocks[q], rps[q]) for q in range(P_CARD)]
+        rows = []
+        for p in range(P_CARD):
+            halo = (torch.cat([bufs[(p - s) % P_CARD][s - 1]
+                               for s in range(1, P_CARD)])
+                    if name == "ring" else
+                    torch.stack([bufs[q][0][p] for q in range(P_CARD)]
+                                ).reshape(-1, GAT_HEADS, 8))
+            rows.append(S.halo_gat_rows(blocks[p], halo, rps[p], att_s,
+                                        att_d, 0.2))
+        rel = _rel(torch.cat(rows), ref)
+        out[f"gat_p4_{name}"] = rel
+        if rel > F32_SPMM_TOL:
+            raise AssertionError(f"halo GAT P = {P_CARD} ({name}): {rel}")
+    print(f"parallel (c) halo GAT P={P_CARD} bodies on a {n_c}-node cut: "
+          f"all_to_all rel {out['gat_p4_alltoall']:.2e}, ring rel "
+          f"{out['gat_p4_ring']:.2e} against the one-part edge softmax "
+          f"(bound {F32_SPMM_TOL})", flush=True)
+    del g4, xs, want, f, gc
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_stegcn(torch, np, P, fs, mesh, card):
+    """(d): make_sharded_train_step at Cora's width (phase 3's graph), 10
+    steps with fused=True (core_spmm, run whole) and fused=False (the row
+    blocks of the normalized adjacency), each the same bits as the
+    unsharded step at world size 1; then one AttSTEGCN hyperstep with
+    ``adj_constraint`` against the unsharded one."""
+    from laplace_gnn_torch.models import AttSTEGCN, STEGCN
+    from laplace_gnn_torch.training.marglik_gnn import (_ce_mean,
+                                                        make_neg_marglik_fn)
+    rng = np.random.default_rng(0)
+    X, adj, y = make_graph(np, rng)
+    tr = torch.as_tensor(rng.permutation(N_NODES)[:N_TRAIN], device="cuda")
+    yt = torch.as_tensor(y, device="cuda")[tr]
+    out = {}
+    for fused in (True, False):
+        model = STEGCN(N_FEAT, HIDDEN, N_CLASS, 2, X, adj, dropout_p=0.0,
+                       fused=fused, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+        step, shard = P.make_sharded_train_step(model, mesh, _ce_mean,
+                                                lr=0.1)
+        plain, _ = P.make_sharded_train_step(model, mesh, _ce_mean, lr=0.1)
+        p_sh, shardings = shard(model.params())
+        p_un = model.params()
+        fs.core.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(10):
+            p_sh, loss = step(p_sh, tr, yt)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = fs.core.launches
+        for _ in range(10):
+            p_un, loss_un = plain(p_un, tr, yt)
+        same = _same_params(torch, p_sh, p_un) and float(loss_un) == \
+            losses[-1]
+        row = {"s_10_steps": secs, "losses": losses, "same_bits": same,
+               "core_spmm_launches": launches,
+               "adj_spec": shardings["adj"].spec}
+        out[f"fused={fused}"] = row
+        if not same:
+            raise AssertionError(f"sharded STE-GCN step fused={fused}: "
+                                 f"other bits than the unsharded step")
+        if fused and launches == 0:
+            raise AssertionError("the sharded fused STE-GCN step launched "
+                                 "no core_spmm")
+        print(f"parallel (d) make_sharded_train_step STE-GCN fused={fused} "
+              f"(adj placed {row['adj_spec']}): 10 steps {secs:.3f} s, "
+              f"losses {losses[0]:.5f} -> {losses[-1]:.5f}, the same bits "
+              f"as the unsharded steps: {same}; core_spmm launches "
+              f"{launches}  [{card}]", flush=True)
+        del model, p_sh, p_un
+    # one AttSTEGCN hyperstep, the score matrix's rows on the graph axis
+    model = AttSTEGCN(N_FEAT, HIDDEN, N_CLASS, 2, X, adj, dropout_p=0.0,
+                      device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    vals, grads, secs = {}, {}, {}
+    for name, constraint in (("unsharded", None),
+                             ("sharded", P.graph_sharding(mesh))):
+        model.adj_constraint = constraint
+        fn = make_neg_marglik_fn(model, "classification", "kron", "all",
+                                 N=N_TRAIN)
+        p = {k: v.detach().requires_grad_(k == "adj_W.weight")
+             for k, v in model.params().items()}
+        t0 = time.perf_counter()
+        val = fn(p, tr, yt)
+        (g,) = torch.autograd.grad(val, [p["adj_W.weight"]])
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        vals[name], grads[name] = float(val.detach()), g
+    model.adj_constraint = None
+    nm_rel = abs(vals["sharded"] - vals["unsharded"]) / abs(
+        vals["unsharded"])
+    g_rel = _rel(grads["sharded"], grads["unsharded"])
+    out["attstegcn"] = {"s": secs, "neg_marglik": vals,
+                        "neg_marglik_rel": nm_rel, "adj_W_grad_rel": g_rel,
+                        "adj_W_grad_norm": float(grads["sharded"].norm())}
+    if not (math.isfinite(vals["sharded"]) and nm_rel <= F32_GRAD_TOL
+            and g_rel <= F32_GRAD_TOL and out["attstegcn"][
+                "adj_W_grad_norm"] > 0):
+        raise AssertionError(f"AttSTEGCN adj_constraint hyperstep: "
+                             f"{out['attstegcn']}")
+    print(f"parallel (d) AttSTEGCN Kron hyperstep with adj_constraint: "
+          f"{secs['sharded']:.3f} s (unsharded {secs['unsharded']:.3f} s); "
+          f"-log marglik relative gap {nm_rel:.2e}, d/d adj_W relative "
+          f"{g_rel:.2e} (bound {F32_GRAD_TOL})  [{card}]", flush=True)
+    return out
+
+
+def phase_parallel(torch, np, fa, fs, card, peaks):
+    """Phase 19: the single-axis scale-out layer on a real NCCL group of
+    world size ``torch.cuda.device_count()`` (one card: 1), parts (a)-(d);
+    every flash / core_spmm count set to 0 just before the sharded paths
+    and read just after (``launches``)."""
+    import torch.distributed as dist
+    from laplace_gnn_torch import parallel as P
+    from laplace_gnn_torch.parallel import sharded as S
+    world = torch.cuda.device_count()
+    if world != 1:
+        raise AssertionError(f"phase 19 runs one process, and this machine "
+                             f"has {world} cards")
+    P.initialize(f"tcp://127.0.0.1:{_free_port()}", world, 0,
+                 device="cuda")
+    out, secs = {}, {}
+    try:
+        mesh = P.make_mesh()
+        if str(dist.get_backend()) != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        fs.core.launches = fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        for key, fn, args in (
+                ("gat", parallel_gat, (torch, P, fa, mesh, card)),
+                ("gat_p4", parallel_gat_p4, (torch, S, fa, peaks[0], card)),
+                ("sparse", parallel_sparse, (torch, np, P, S, mesh, card)),
+                ("stegcn", parallel_stegcn, (torch, np, P, fs, mesh, card))):
+            t0 = time.perf_counter()
+            out[key] = fn(*args)
+            torch.cuda.synchronize()
+            secs[key] = time.perf_counter() - t0
+            print(f"parallel part {key}: {secs[key]:.3f} s", flush=True)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = secs
+    out["launches"] = {
+        "flash_fwd": out["gat"]["sharded"]["launches"]["flash_fwd"],
+        "flash_bwd": out["gat"]["sharded"]["launches"]["flash_bwd"],
+        "core_spmm": out["stegcn"]["fused=True"]["core_spmm_launches"]}
+    if not all(out["launches"].values()):
+        raise AssertionError(f"sharded paths' launches {out['launches']}")
+    return out
+
+
 def build_kernels(cuda_build, out_dir, names=None):
     """Phase 1: build the named sources (default all), one nvcc each, all at
     once; each ptxas report goes to ``build_<source>.log``."""
@@ -3640,7 +4167,7 @@ def build_kernels(cuda_build, out_dir, names=None):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["matmul", "core_spmm", "flash",
-                                           "sparse"],
+                                           "sparse", "parallel"],
                         help="build and run this kernel's phase alone; "
                              "prints no ok line")
     args = parser.parse_args(argv)
@@ -3699,6 +4226,19 @@ def main(argv=None) -> int:
         print(json.dumps({"partial": ["flash"]}), flush=True)
         return 0
     counted = (fs.core, fa.flash_fwd, fa.flash_bwd, mm.matmul)
+    if args.only == "parallel":
+        build_kernels(cuda_build, out_dir, ["core_spmm", "flash_attention"])
+        t0 = time.perf_counter()
+        parallel = phase_parallel(torch, np, fa, fs, card, peaks)
+        print(f"phase 19 phase_parallel: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        with open(os.path.join(out_dir, "chip_smoke_parallel.json"),
+                  "w") as f:
+            json.dump({"card": card, "kind": kind, "parallel": parallel}, f,
+                      indent=1, default=str)
+        print(card, flush=True)
+        print(json.dumps({"partial": ["parallel"]}), flush=True)
+        return 0
     if args.only == "sparse":
         sparse_small = phase_sparse_small(torch, np)
         sparse = phase_sparse(torch, np, counted, card)
@@ -3772,6 +4312,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     sparse_small = phase("18", phase_sparse_small, torch, np)
     sparse = phase("18", phase_sparse, torch, np, counted, card)
+    torch.cuda.empty_cache()
+    parallel = phase("19", phase_parallel, torch, np, fa, fs, card, peaks)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -3780,6 +4322,7 @@ def main(argv=None) -> int:
         "redesigned": "PR 6",
         "launches": run["run_launches"], "max_abs_err": max_err,
         "whole_run": whole["fused=True"]["core_spmm"],
+        "sharded_launches": parallel["launches"]["core_spmm"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"]}]
@@ -3795,6 +4338,8 @@ def main(argv=None) -> int:
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": replaces, "redesigned": "PR 7",
             "launches": gat_run["run_launches"][kern.name],
+            "sharded_launches": parallel["launches"][kern.name],
+            "ms_r4096": parallel["gat_p4"]["timing"][kern.name]["ms"],
             "max_abs_err": flash_err[kern.name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
@@ -3804,7 +4349,7 @@ def main(argv=None) -> int:
     kernels.append({
         "name": mm.matmul.name, "route": "cuda", "source": mm.matmul.source,
         "replaces": "laplace_gnn_tpu/ops/pallas_matmul.py:21",
-        "launches": mm_checks,
+        "launches": mm_checks, "sharded_launches": 0,
         "note": "on no path of the package, as in JAX (0 launches in "
                 "phases 8-10); launches are phase 7's checking calls",
         "redesigned": "PR 5",
@@ -3834,7 +4379,7 @@ def main(argv=None) -> int:
                    "whole_run": whole, "whole_run_small": whole_small,
                    "core_spmm_launched": launched,
                    "sparse": sparse, "sparse_small": sparse_small,
-                   "phase_seconds": seconds,
+                   "parallel": parallel, "phase_seconds": seconds,
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -52,6 +52,15 @@ def _shallow_clone(module: nn.Module) -> nn.Module:
     return clone
 
 
+def _plain_attention(impl):
+    """``impl`` without a kernel that lacks a forward-mode rule: None for
+    "flash", a callable's ``jvp_safe()`` twin where it has one."""
+    if impl == "flash":
+        return None
+    twin = getattr(impl, "jvp_safe", None)
+    return twin() if callable(twin) else impl
+
+
 class BaseGNN(nn.Module):
     # what the trainer's hypersteps step (JAX's ADJ_PARAM_FILTERS)
     adj_params = ("adj",)
@@ -186,17 +195,20 @@ class BaseGNN(nn.Module):
         rule, so ``torch.func.jvp`` (the mixed-diagonal KFAC blocks) and a
         second derivative cannot pass through it. Curvature code calls this
         before closing over the model; training and inference keep the
-        kernels. Both paths compute the same math. Callable impls are kept
-        (they are plain PyTorch). Returns ``self`` when nothing needs
-        stripping."""
-        if not any(getattr(c, "attention_impl", None) == "flash"
-                   for c in self.convs):
+        kernels. Both paths compute the same math. A callable impl is kept,
+        unless it offers a plain twin through its own ``jvp_safe()`` (the
+        row-sharded flash attention of ``parallel.sharded``), which is then
+        taken. Returns ``self`` when nothing needs stripping."""
+        plain = [_plain_attention(getattr(c, "attention_impl", None))
+                 for c in self.convs]
+        if all(p is getattr(c, "attention_impl", None)
+               for p, c in zip(plain, self.convs)):
             return self
         convs = []
-        for c in self.convs:
-            if getattr(c, "attention_impl", None) == "flash":
+        for c, impl in zip(self.convs, plain):
+            if impl is not getattr(c, "attention_impl", None):
                 c = _shallow_clone(c)
-                c.attention_impl = None
+                c.attention_impl = impl
             convs.append(c)
         m = _shallow_clone(self)
         m.convs = nn.ModuleList(convs)

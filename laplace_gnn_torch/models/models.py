@@ -115,6 +115,11 @@ class STEGCN(BaseGNN):
         self.fused = fused
         self.threshold = threshold
         self.sign_grad = sign_grad
+        #: None, or a 'graph' row placement (``parallel.graph_sharding``):
+        #: then the composed path builds each rank's rows of the normalized
+        #: adjacency and multiplies them (``parallel.sharded``); the fused
+        #: kernel reads the square adjacency and ignores it
+        self.adj_constraint = None
         self.train_masked_update = train_masked_update
         self.grad_adj_mask = None
         if train_masked_update:
@@ -145,6 +150,14 @@ class STEGCN(BaseGNN):
             return FusedAdjOp(lambda s: ste_norm_aggregate(
                 adj, s, self.threshold, self.symmetric, self.sign_grad,
                 self.grad_adj_mask))
+        ax = _graph_axis(self.adj_constraint)
+        if ax is not None:
+            from ..parallel.collectives import shard_rows
+            from ..parallel.sharded import column_block
+            cols = column_block(adj, ax)
+            if self.symmetric:
+                cols = (cols + shard_rows(adj, ax).T) / 2
+            return _row_block_adj(self, cols, ax)
         if self.symmetric:
             adj = (adj + adj.T) / 2
         adj = binarize_ste(adj, self.threshold, self.grad_adj_mask,
@@ -153,6 +166,31 @@ class STEGCN(BaseGNN):
 
     def init_conv(self, in_channels, out_channels, name, **kwargs):
         return GCNConv(in_channels, out_channels, name=name, **kwargs)
+
+
+def _graph_axis(constraint):
+    """The graph axis of a row placement, or None (no placement)."""
+    if constraint is None:
+        return None
+    from ..parallel.sharded import graph_axis_of
+    ax = graph_axis_of(constraint)
+    if ax is None:
+        raise ValueError(f"adj_constraint must place rows on the 'graph' "
+                         f"axis, got {constraint.spec}")
+    return ax
+
+
+def _row_block_adj(model, cols, ax):
+    """The rank's rows of the normalized STE adjacency from its column
+    block of the (symmetrized) raw one, as a row-block operator."""
+    from ..parallel.sharded import RowBlockAdj, ste_normalized_rows
+    mask = model.grad_adj_mask
+    if mask is not None:
+        b = cols.shape[1]
+        mask = mask[:, ax.index * b:(ax.index + 1) * b]
+    return RowBlockAdj(ste_normalized_rows(
+        cols, ax, model.threshold, mask, getattr(model, "sign_grad", False)),
+        ax)
 
 
 class STEGraphSAGE(BaseGNN):
@@ -296,6 +334,11 @@ class AttSTEGCN(BaseGNN):
         self.scale = math.sqrt(d_k)
         self.grad_adj_mask = _hard_mask(self, train_masked_update,
                                         train_nodes)
+        #: None, or a 'graph' row placement (``parallel.graph_sharding``,
+        #: JAX's sharding constraint on the score matrix): each rank then
+        #: builds its rows of the score, the STE and the normalization
+        #: (``parallel.sharded``) and multiplies them
+        self.adj_constraint = None
 
     def _draw(self, generator: torch.Generator) -> dict:
         out = super()._draw(generator)
@@ -306,12 +349,20 @@ class AttSTEGCN(BaseGNN):
 
     def construct_adj(self) -> torch.Tensor:
         src = self.adj_W(self.X.to(self.adj.dtype))
-        score = (src @ src.T) / self.scale
-        # hardtanh(0, 1) with JAX's clip gradient at ties (half a side)
-        return torch.minimum(torch.maximum(score, score.new_zeros(())),
-                             score.new_ones(()))
+        return _clip01((src @ src.T) / self.scale)
 
     def forward_adj(self, taps: Optional[TapCollector] = None):
+        ax = _graph_axis(self.adj_constraint)
+        if ax is not None:
+            from ..parallel.collectives import all_gather, shard_rows
+            src = self.adj_W(self.X.to(self.adj.dtype))
+            src_blk = shard_rows(src, ax)
+            src_all = all_gather(src_blk, ax)
+            cols = _clip01((src_all @ src_blk.T) / self.scale)  # S[:, rows]
+            if self.symmetric:
+                cols = (cols + _clip01((src_blk @ src_all.T)
+                                       / self.scale).T) / 2
+            return _row_block_adj(self, cols, ax)
         adj = self.construct_adj()
         if self.symmetric:
             adj = (adj + adj.T) / 2
@@ -320,6 +371,12 @@ class AttSTEGCN(BaseGNN):
 
     def init_conv(self, in_channels, out_channels, name, **kwargs):
         return GCNConv(in_channels, out_channels, name=name, **kwargs)
+
+
+def _clip01(score: torch.Tensor) -> torch.Tensor:
+    """hardtanh(0, 1) with JAX's clip gradient at ties (half a side)."""
+    return torch.minimum(torch.maximum(score, score.new_zeros(())),
+                         score.new_ones(()))
 
 
 def _hard_mask(model: BaseGNN, train_masked_update: bool, train_nodes):

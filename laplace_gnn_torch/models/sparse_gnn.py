@@ -91,7 +91,10 @@ class SparseGATConv(nn.Module):
         g = getattr(graph, "graph", graph)           # unwrap FastAggGraph
         a_src = torch.sum(h * self.att_src, dim=-1)                 # (N, H)
         a_dst = torch.sum(h * self.att_dst, dim=-1)
-        if g.format == "ell" and g.ell_cols is not None:
+        if hasattr(graph, "gat_aggregate"):          # HaloAggGraph: sharded
+            out = graph.gat_aggregate(h, self.att_src, self.att_dst,
+                                      self.negative_slope)
+        elif g.format == "ell" and g.ell_cols is not None:
             # the softmax and the aggregation in the ELL layout: one payload
             # gather per tier, no per-edge work for ELL-resident edges
             layout = getattr(graph, "_gat_layout", None)
@@ -102,16 +105,8 @@ class SparseGATConv(nn.Module):
             out = ell_gat_attention(g, layout, h, a_src, a_dst,
                                     self.negative_slope)
         else:
-            seg = g.segments("dst")
-            scores = _leaky_relu(gather(a_src, g.segments("src"))
-                                 + gather(a_dst, seg),
-                                 self.negative_slope)               # (E, H)
-            # the row maxima are a shift that cancels in the softmax
-            smax = seg.reduce(scores.detach(), "max")
-            ex = torch.exp(scores - seg.gather(smax))
-            denom = segment_sum(ex, seg)
-            coeff = ex / torch.clamp_min(gather(denom, seg), 1e-16)  # (E, H)
-            out = self._aggregate_messages(graph, g, coeff, h)
+            out = segment_attention(graph, h, a_src, a_dst,
+                                    self.negative_slope)
         if self.concat:
             out = out.reshape(n, self.heads * self.out_channels)
         else:
@@ -141,6 +136,24 @@ class SparseGATConv(nn.Module):
         # bias get exact-diagonal blocks under the mixed KFAC
         return [{"name": self.name, "param_path": ("lin",),
                  "has_bias": False, "kfac_incomplete": True}]
+
+
+def segment_attention(graph, h: torch.Tensor, a_src: torch.Tensor,
+                      a_dst: torch.Tensor,
+                      negative_slope: float) -> torch.Tensor:
+    """GAT's edge softmax over each row's dst-sorted edges and the
+    aggregation, ``out[i] = sum_{e: dst_e = i} softmax_e(leaky_relu(
+    a_src[src_e] + a_dst[i])) h[src_e]`` for (N, H, F) ``h``."""
+    g = getattr(graph, "graph", graph)               # unwrap FastAggGraph
+    seg = g.segments("dst")
+    scores = _leaky_relu(gather(a_src, g.segments("src"))
+                         + gather(a_dst, seg), negative_slope)      # (E, H)
+    # the row maxima are a shift that cancels in the softmax
+    smax = seg.reduce(scores.detach(), "max")
+    ex = torch.exp(scores - seg.gather(smax))
+    denom = segment_sum(ex, seg)
+    coeff = ex / torch.clamp_min(gather(denom, seg), 1e-16)         # (E, H)
+    return SparseGATConv._aggregate_messages(graph, g, coeff, h)
 
 
 class SparseGCN(nn.Module):
@@ -259,9 +272,11 @@ class SparseGAT(SparseGCN):
                          **kwargs)
         self.first_tap_static = False
         # the plans of the attention's gathers are formed here, outside the
-        # curvature's torch.func transforms
+        # curvature's torch.func transforms (a HaloAggGraph has its own)
         g = self.graph.graph
-        if g.format == "ell" and g.ell_cols is not None:
+        if hasattr(self.graph, "gat_aggregate"):
+            pass
+        elif g.format == "ell" and g.ell_cols is not None:
             self.graph._gat_layout = ell_gat_layout(g)
             if g.has_remainder():
                 g.segments("rem_src")

@@ -21,7 +21,8 @@ def initialize(coordinator_address: Optional[str] = None,
     than one process after the call.
 
     The arguments default to the environment variables
-    ``LAPLACE_GNN_COORDINATOR`` (``host:port`` of process 0),
+    ``LAPLACE_GNN_COORDINATOR`` (``host:port`` of process 0, or a
+    ``tcp://`` / ``file://`` rendezvous URL),
     ``LAPLACE_GNN_NUM_PROCESSES`` and ``LAPLACE_GNN_PROCESS_ID``. With
     neither an address nor a process count it does nothing and returns
     False. The group uses NCCL on ``cuda`` (the default) and Gloo when the
@@ -37,8 +38,13 @@ def initialize(coordinator_address: Optional[str] = None,
             return False
         backend = "nccl" if resolve_device(device).type == "cuda" \
             else "gloo"
+        if coordinator_address is None:
+            init_method = "env://"
+        elif "://" in coordinator_address:      # tcp://... or file://...
+            init_method = coordinator_address
+        else:
+            init_method = f"tcp://{coordinator_address}"
         dist.init_process_group(
-            backend, init_method=(f"tcp://{coordinator_address}"
-                                  if coordinator_address else "env://"),
+            backend, init_method=init_method,
             world_size=num_processes, rank=process_id)
     return dist.get_world_size() > 1

@@ -274,3 +274,56 @@ def test_native_loader_reads_nothing_of_the_jax_package():
         "_build"
     assert native.SRC.read_bytes() == (
         REPO / "laplace_gnn_tpu" / "native" / "graph_prep.cpp").read_bytes()
+
+
+def test_parallel_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
+    """The sharded layer's entry points resolve their device before they
+    touch the mesh: without a GPU they raise unless ``device="cpu"``."""
+    from laplace_gnn_torch.graph.container import sparse_from_edge_index
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.parallel import (HaloAggGraph, make_mesh,
+                                            make_row_sharded_gat_attention,
+                                            make_sharded_train_step)
+    X, adj = _graph()
+    g = sparse_from_edge_index(np.array(np.nonzero(adj)), 10, device="cpu")
+    m = STEGCN(4, 8, 3, 2, X, adj, device="cpu")
+    for call in (lambda: make_mesh(),
+                 lambda: HaloAggGraph(None, g),
+                 lambda: make_sharded_train_step(m, None, torch.sum),
+                 lambda: make_row_sharded_gat_attention(None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # with the CPU asked, make_mesh still needs a process group
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh(device="cpu")
+
+
+def test_parallel_loads_no_scipy_and_gloo_takes_no_device_tensor(tmp_path):
+    """A fresh process imports the sharded layer (no scipy is loaded: only
+    ``rcm_order`` imports it, inside), joins a one-process Gloo group and
+    makes a CPU mesh; a tensor on another device (``meta`` here, as a
+    card's would be) raises at every collective instead of crossing
+    Gloo."""
+    code = (
+        "import sys, torch\n"
+        "import laplace_gnn_torch.parallel as P\n"
+        "from laplace_gnn_torch.parallel import collectives as C\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'scipy']\n"
+        f"P.initialize('file://{tmp_path}/rdzv', 1, 0, device='cpu')\n"
+        "mesh = P.make_mesh(device='cpu')\n"
+        "ax = C.mesh_axis(mesh)\n"
+        "assert ax.backend == 'gloo' and ax.size == 1\n"
+        "x = torch.zeros(2, 3, device='meta')\n"
+        "raised = 0\n"
+        "for f in (C.all_gather, C.reduce_scatter, C.all_to_all,\n"
+        "          C.all_reduce, C.gather_rows, C.sum_replicated,\n"
+        "          lambda t, a: C.ppermute(t, a, 1)):\n"
+        "    try:\n"
+        "        f(x, ax)\n"
+        "    except RuntimeError as e:\n"
+        "        raised += 'Gloo' in str(e)\n"
+        "print(raised)\n"
+        "sys.exit(0 if raised == 7 else 1)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
