@@ -220,13 +220,17 @@ Phases, each fatal:
      at one part), its train step timed; RCM order, edge-balanced blocks
      padded to one width, both halo plans and every rank's body against
      the whole SpMM (1e-5, twice the same bits), each schedule's
-     comm_volume_ratio and the projected scaling at 2 / 4 / 8 GPUs from
-     the measured SpMM; the halo GAT's P = 4 bodies on a 4096-node cut;
-     (d) ``make_sharded_train_step`` on STE-GCN at Cora's width, fused
-     (``core_spmm``, launches counted) and composed (the adjacency's row
-     blocks), 10 steps each the same bits as the unsharded steps, and an
-     AttSTEGCN Kron hyperstep with ``adj_constraint`` (value and d/d
-     adj_W within 1e-4 of the unsharded ones).
+     rows that cross (the halo alone, JAX's comm_volume_ratio, and with
+     the bodies' exit gather) and the projected scaling at 2 / 4 / 8 GPUs
+     from the measured SpMM, halo alone and with the exit gather; the
+     halo GAT's P = 4 bodies on a 4096-node cut; (d)
+     ``make_sharded_train_step`` on STE-GCN at Cora's width, fused
+     (``core_spmm``, launches counted) and composed, 10 steps each the
+     same bits as a plain autograd SGD step written here (STE-GCN has no
+     sharded body: its sharded step is the unsharded step on each rank),
+     and an AttSTEGCN Kron hyperstep with ``adj_constraint`` (value and
+     d/d adj_W within 1e-4 of the unsharded ones). Every kernel's count,
+     ``matmul``'s too, is set to 0 before the parts and read after.
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -3951,8 +3955,7 @@ def parallel_sparse(torch, np, P, S, mesh, card):
         cross = ((P_CARD - 1) * int(plan["H"]) if name == "alltoall"
                  else int(sum(plan["H_s"])))
         row = {"rel": _rel(got, want), "same_bits": torch.equal(got, again),
-               "block": B, "halo_rows_per_device": cross,
-               "comm_volume_ratio": cross / (n_p * (P_CARD - 1) // P_CARD)}
+               "block": B, **S.halo_stats(n_p, P_CARD, cross)}
         if name == "ring":
             row["H_s"] = plan["H_s"]
         out[f"p4_{name}"] = row
@@ -3961,19 +3964,30 @@ def parallel_sparse(torch, np, P, S, mesh, card):
     spmm_ms = cold_ms(torch, lambda: f(xs))
     proj = scaling.projected_scaling(g4, SPARSE_HIDDEN, spmm_ms / 1e3,
                                      n_chips=(2, 4, 8))
+    proj_exit = scaling.projected_scaling(g4, SPARSE_HIDDEN, spmm_ms / 1e3,
+                                          n_chips=(2, 4, 8),
+                                          exit_gather=True)
     out["spmm_ms"], out["projected"] = spmm_ms, proj
+    out["projected_exit_gather"] = proj_exit
     print(f"parallel (c) P={P_CARD} halo SpMM on one card (RCM, "
           f"edge-balanced blocks padded to {n_p} nodes, plans "
           f"{out['plan_s']:.1f} s): all_to_all rel "
           f"{out['p4_alltoall']['rel']:.2e}, ring rel "
           f"{out['p4_ring']['rel']:.2e} (bound {F32_SPMM_TOL}, against the "
-          f"whole SpMM), twice the same bits; comm_volume_ratio all_to_all "
-          f"{out['p4_alltoall']['comm_volume_ratio']:.4f}, ring "
+          f"whole SpMM), twice the same bits; rows that cross per rank, "
+          f"the halo alone against one all-gather (comm_volume_ratio) "
+          f"all_to_all {out['p4_alltoall']['comm_volume_ratio']:.4f}, ring "
           f"{out['p4_ring']['comm_volume_ratio']:.4f} (H_s "
-          f"{out['p4_ring']['H_s']}); one-card SpMM {spmm_ms:.3f} ms  "
-          f"[{card}]", flush=True)
-    print("  projected (H100 NVLink 4.5e11 B/s, not measured):\n"
-          + scaling.format_table(proj), flush=True)
+          f"{out['p4_ring']['H_s']}); with the bodies' exit gather of "
+          f"{out['p4_ring']['exit_gather_rows_per_device']} rows, against "
+          f"the port's all-gather aggregate (port_volume_ratio) all_to_all "
+          f"{out['p4_alltoall']['port_volume_ratio']:.4f}, ring "
+          f"{out['p4_ring']['port_volume_ratio']:.4f}; one-card SpMM "
+          f"{spmm_ms:.3f} ms  [{card}]", flush=True)
+    print("  projected, the halo alone (H100 NVLink 4.5e11 B/s, not "
+          "measured):\n" + scaling.format_table(proj), flush=True)
+    print("  projected with the exit gather (the port as it stands):\n"
+          + scaling.format_table(proj_exit), flush=True)
     # the halo GAT's P = 4 bodies on a 4096-node cut of the ordered graph
     n_c = 4096
     keep = (ei_r[0] < n_c) & (ei_r[1] < n_c)
@@ -4015,10 +4029,12 @@ def parallel_sparse(torch, np, P, S, mesh, card):
 
 def parallel_stegcn(torch, np, P, fs, mesh, card):
     """(d): make_sharded_train_step at Cora's width (phase 3's graph), 10
-    steps with fused=True (core_spmm, run whole) and fused=False (the row
-    blocks of the normalized adjacency), each the same bits as the
-    unsharded step at world size 1; then one AttSTEGCN hyperstep with
-    ``adj_constraint`` against the unsharded one."""
+    steps with fused=True (core_spmm) and fused=False, each the same bits
+    as 10 plain autograd SGD steps on the model's ``apply``, written here
+    apart from the factory; STE-GCN has no sharded body, so its sharded
+    step is by design the unsharded step, run on each rank. Then one
+    AttSTEGCN hyperstep with ``adj_constraint`` (its rows of the score
+    matrix built per rank) against the unsharded one."""
     from laplace_gnn_torch.models import AttSTEGCN, STEGCN
     from laplace_gnn_torch.training.marglik_gnn import (_ce_mean,
                                                         make_neg_marglik_fn)
@@ -4033,7 +4049,17 @@ def parallel_stegcn(torch, np, P, fs, mesh, card):
                        generator=torch.Generator().manual_seed(0))
         step, shard = P.make_sharded_train_step(model, mesh, _ce_mean,
                                                 lr=0.1)
-        plain, _ = P.make_sharded_train_step(model, mesh, _ce_mean, lr=0.1)
+
+        def plain(params, idx, y):
+            leaves = [v.detach().requires_grad_(True)
+                      for v in params.values()]
+            p = dict(zip(params, leaves))
+            loss = _ce_mean(model.apply(p, idx), y)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return ({k: (v if gr is None else v - 0.1 * gr).detach()
+                     for (k, v), gr in zip(p.items(), grads)},
+                    loss.detach())
+
         p_sh, shardings = shard(model.params())
         p_un = model.params()
         fs.core.launches = 0
@@ -4063,7 +4089,7 @@ def parallel_stegcn(torch, np, P, fs, mesh, card):
         print(f"parallel (d) make_sharded_train_step STE-GCN fused={fused} "
               f"(adj placed {row['adj_spec']}): 10 steps {secs:.3f} s, "
               f"losses {losses[0]:.5f} -> {losses[-1]:.5f}, the same bits "
-              f"as the unsharded steps: {same}; core_spmm launches "
+              f"as plain autograd SGD steps: {same}; core_spmm launches "
               f"{launches}  [{card}]", flush=True)
         del model, p_sh, p_un
     # one AttSTEGCN hyperstep, the score matrix's rows on the graph axis
@@ -4103,11 +4129,13 @@ def parallel_stegcn(torch, np, P, fs, mesh, card):
     return out
 
 
-def phase_parallel(torch, np, fa, fs, card, peaks):
+def phase_parallel(torch, np, fa, fs, mm, card, peaks):
     """Phase 19: the single-axis scale-out layer on a real NCCL group of
     world size ``torch.cuda.device_count()`` (one card: 1), parts (a)-(d);
-    every flash / core_spmm count set to 0 just before the sharded paths
-    and read just after (``launches``)."""
+    every kernel's count (flash, core_spmm, matmul) set to 0 just before
+    the parts and read just after them (``launches``: the flash pair's
+    from part (a)'s timed sharded steps, core_spmm's from part (d)'s
+    fused sharded steps, matmul's over all four parts)."""
     import torch.distributed as dist
     from laplace_gnn_torch import parallel as P
     from laplace_gnn_torch.parallel import sharded as S
@@ -4123,6 +4151,7 @@ def phase_parallel(torch, np, fa, fs, card, peaks):
         if str(dist.get_backend()) != "nccl":
             raise AssertionError(f"backend {dist.get_backend()}")
         fs.core.launches = fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        mm.matmul.launches = 0
         for key, fn, args in (
                 ("gat", parallel_gat, (torch, P, fa, mesh, card)),
                 ("gat_p4", parallel_gat_p4, (torch, S, fa, peaks[0], card)),
@@ -4133,6 +4162,7 @@ def phase_parallel(torch, np, fa, fs, card, peaks):
             torch.cuda.synchronize()
             secs[key] = time.perf_counter() - t0
             print(f"parallel part {key}: {secs[key]:.3f} s", flush=True)
+        matmul_launches = mm.matmul.launches
     finally:
         dist.destroy_process_group()
     out["seconds"] = secs
@@ -4142,6 +4172,10 @@ def phase_parallel(torch, np, fa, fs, card, peaks):
         "core_spmm": out["stegcn"]["fused=True"]["core_spmm_launches"]}
     if not all(out["launches"].values()):
         raise AssertionError(f"sharded paths' launches {out['launches']}")
+    # matmul is on no path, sharded or not: counted, not required
+    out["launches"]["matmul"] = matmul_launches
+    print(f"parallel launches on the sharded paths: {out['launches']}",
+          flush=True)
     return out
 
 
@@ -4229,7 +4263,7 @@ def main(argv=None) -> int:
     if args.only == "parallel":
         build_kernels(cuda_build, out_dir, ["core_spmm", "flash_attention"])
         t0 = time.perf_counter()
-        parallel = phase_parallel(torch, np, fa, fs, card, peaks)
+        parallel = phase_parallel(torch, np, fa, fs, mm, card, peaks)
         print(f"phase 19 phase_parallel: {time.perf_counter() - t0:.3f} s",
               flush=True)
         with open(os.path.join(out_dir, "chip_smoke_parallel.json"),
@@ -4313,7 +4347,8 @@ def main(argv=None) -> int:
     sparse_small = phase("18", phase_sparse_small, torch, np)
     sparse = phase("18", phase_sparse, torch, np, counted, card)
     torch.cuda.empty_cache()
-    parallel = phase("19", phase_parallel, torch, np, fa, fs, card, peaks)
+    parallel = phase("19", phase_parallel, torch, np, fa, fs, mm, card,
+                     peaks)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -4349,7 +4384,8 @@ def main(argv=None) -> int:
     kernels.append({
         "name": mm.matmul.name, "route": "cuda", "source": mm.matmul.source,
         "replaces": "laplace_gnn_tpu/ops/pallas_matmul.py:21",
-        "launches": mm_checks, "sharded_launches": 0,
+        "launches": mm_checks,
+        "sharded_launches": parallel["launches"]["matmul"],
         "note": "on no path of the package, as in JAX (0 launches in "
                 "phases 8-10); launches are phase 7's checking calls",
         "redesigned": "PR 5",

@@ -115,11 +115,6 @@ class STEGCN(BaseGNN):
         self.fused = fused
         self.threshold = threshold
         self.sign_grad = sign_grad
-        #: None, or a 'graph' row placement (``parallel.graph_sharding``):
-        #: then the composed path builds each rank's rows of the normalized
-        #: adjacency and multiplies them (``parallel.sharded``); the fused
-        #: kernel reads the square adjacency and ignores it
-        self.adj_constraint = None
         self.train_masked_update = train_masked_update
         self.grad_adj_mask = None
         if train_masked_update:
@@ -150,14 +145,6 @@ class STEGCN(BaseGNN):
             return FusedAdjOp(lambda s: ste_norm_aggregate(
                 adj, s, self.threshold, self.symmetric, self.sign_grad,
                 self.grad_adj_mask))
-        ax = _graph_axis(self.adj_constraint)
-        if ax is not None:
-            from ..parallel.collectives import shard_rows
-            from ..parallel.sharded import column_block
-            cols = column_block(adj, ax)
-            if self.symmetric:
-                cols = (cols + shard_rows(adj, ax).T) / 2
-            return _row_block_adj(self, cols, ax)
         if self.symmetric:
             adj = (adj + adj.T) / 2
         adj = binarize_ste(adj, self.threshold, self.grad_adj_mask,

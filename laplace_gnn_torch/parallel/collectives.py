@@ -53,23 +53,27 @@ _reduce_scatter_rows = getattr(dist, "reduce_scatter_single", None) or \
 
 @dataclass(frozen=True, eq=False)
 class Axis:
-    """One axis of a mesh as this rank sees it: its process group, its
-    size and this rank's place along it."""
+    """One axis of a mesh as this rank sees it: its process group, the
+    group's backend, its size and this rank's place along it."""
     name: str
     group: object
+    backend: str
     size: int
     index: int
 
-    @property
-    def backend(self) -> str:
-        return str(dist.get_backend(self.group))
-
 
 def mesh_axis(mesh, name: str = "graph") -> Axis:
-    """The :class:`Axis` ``name`` of a ``DeviceMesh``."""
-    dim = mesh.mesh_dim_names.index(name)
-    return Axis(name=name, group=mesh.get_group(name),
-                size=int(mesh.size(dim)), index=int(mesh.get_local_rank(name)))
+    """The :class:`Axis` ``name`` of a ``DeviceMesh``, made once per mesh
+    and kept on it: a sharded step asks for it at every body and checks
+    its backend at every collective."""
+    axes = mesh.__dict__.setdefault("_laplace_gnn_axes", {})
+    if name not in axes:
+        group = mesh.get_group(name)
+        axes[name] = Axis(name=name, group=group,
+                          backend=str(dist.get_backend(group)),
+                          size=int(mesh.size(mesh.mesh_dim_names.index(name))),
+                          index=int(mesh.get_local_rank(name)))
+    return axes[name]
 
 
 class Pending:

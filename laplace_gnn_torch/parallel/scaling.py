@@ -28,9 +28,16 @@ def projected_scaling(graph, d_features: int, t_compute_1chip: float,
                       bytes_per_el: int = 4,
                       ici_bw: float = H100_NVLINK_BW,
                       overlap: bool = True,
-                      t_fixed: float = 0.0) -> list[dict]:
+                      t_fixed: float = 0.0,
+                      exit_gather: bool = False) -> list[dict]:
     """Project the edges/s scaling efficiency of the halo-partitioned
     aggregation.
+
+    By default it prices the halo alone, as JAX's does: there a body's
+    output stays sharded. The port's bodies end in a gather of their
+    output rows (``parallel.sharded``); ``exit_gather=True`` prices that
+    too, (n - 1) * ceil(N / n) rows after the body, which nothing
+    overlaps.
 
     Per GPU and aggregation at ``n`` GPUs:
       t_comp(n) = t_fixed + (t_compute_1chip - t_fixed) / n
@@ -43,11 +50,13 @@ def projected_scaling(graph, d_features: int, t_compute_1chip: float,
       t_step(n) = max(t_comp, t_comm)   if overlap (the exchange is issued
                   before the independent local segment-sum)
                   t_comp + t_comm       otherwise
+                  + exit_rows(n) * d * bytes / ici_bw   if exit_gather
       efficiency(n) = t_compute_1chip / (n * t_step(n))
 
     ``ici_bw`` is the link between the GPUs of the 'graph' axis (NVLink by
     default). Returns one dict per n: {n, halo_rows, t_comp_us, t_comm_us,
-    t_step_us, efficiency, edges_per_s}.
+    t_step_us, efficiency, edges_per_s}, and with ``exit_gather`` also
+    exit_rows and t_exit_us (t_comm_us stays the halo's).
     """
     from .sharded import halo_widths
 
@@ -62,6 +71,12 @@ def projected_scaling(graph, d_features: int, t_compute_1chip: float,
         t_comp = t_fixed + (t_compute_1chip - t_fixed) / n
         t_comm = halo_rows * d_features * bytes_per_el / ici_bw
         t_step = max(t_comp, t_comm) if overlap else t_comp + t_comm
+        row = {}
+        if exit_gather:
+            exit_rows = (n - 1) * -(-graph.n_nodes // n)
+            t_exit = exit_rows * d_features * bytes_per_el / ici_bw
+            t_step += t_exit
+            row = {"exit_rows": int(exit_rows), "t_exit_us": t_exit * 1e6}
         eff = t_compute_1chip / (n * t_step)
         out.append({
             "n": int(n),
@@ -71,6 +86,7 @@ def projected_scaling(graph, d_features: int, t_compute_1chip: float,
             "t_step_us": t_step * 1e6,
             "efficiency": float(eff),
             "edges_per_s": float(n_edges / t_step),
+            **row,
         })
     return out
 
@@ -111,6 +127,8 @@ def ring_dense_projection(n_nodes: int, d_features: int,
     (pipeline bound: all compute, or all hops plus one exposed chunk).
     All-gather: collective then one product, serialized:
       t_ag = (n-1)/n * N*d*bytes / ici_bw + t_comp/n.
+    Both leave the output sharded, as JAX's bodies do; the port's bodies
+    then gather it, (n-1)/n * N*d*bytes more for either, not priced here.
     """
     out = []
     for n in n_chips:

@@ -13,6 +13,14 @@ whole (``gather_rows``). Every collective and every boundary is a Function
 with vmap, forward-mode and differentiable backward rules, so the KFAC
 pullbacks and the marglik hyperstep run through the bodies.
 
+What does not scale yet: every rank holds every whole value (the whole
+(N, N) adjacency, the features and every activation) and runs each
+row-wise layer on all N rows; only the aggregations split their work, and
+each body ends in a gather of its N x d rows (``gather_rows``), on top of
+its own exchange. So memory does not fall with the number of ranks, and no
+graph larger than one card can run yet: keeping the row blocks through the
+row-wise layers, with no exit gather, is the step that would.
+
 Each body is split at its collectives into module functions of the rank's
 block and of what it received (:func:`halo_send`, :func:`halo_rows`,
 :func:`halo_gat_rows`, :func:`row_attention`, ...): the ``make_*``
@@ -28,7 +36,6 @@ so two calls give the same bits.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -154,33 +161,11 @@ def ste_normalized_rows(cols: torch.Tensor, ax: Axis, threshold: float,
     return d_rows[:, None] * a.T * d[None, :]
 
 
-def column_block(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    """This rank's block of columns of a whole (N, N) value."""
-    return shard_rows(x.T, ax).T
-
-
 def graph_axis_of(sharding) -> Optional[Axis]:
     """The graph axis of a row placement (``graph_sharding``), else None."""
     if sharding is None or getattr(sharding, "spec", ())[:1] != ("graph",):
         return None
     return mesh_axis(sharding.mesh)
-
-
-@contextlib.contextmanager
-def _adj_placement(model, sharding):
-    """Route the model's dense STE adjacency through its row blocks while
-    the adjacency is placed on the graph axis (the models with an
-    ``adj_constraint`` hook)."""
-    if graph_axis_of(sharding) is None or not hasattr(model,
-                                                      "adj_constraint"):
-        yield
-        return
-    before = model.adj_constraint
-    model.adj_constraint = sharding
-    try:
-        yield
-    finally:
-        model.adj_constraint = before
 
 
 def make_sharded_train_step(model, mesh, loss_fn, lr: float = 0.01,
@@ -191,29 +176,28 @@ def make_sharded_train_step(model, mesh, loss_fn, lr: float = 0.01,
     ``(params, shardings)``; ``step(params, idx, y)`` returns ``(params,
     loss)``.
 
-    JAX leaves the partition to XLA. Here the adjacency's row placement
-    takes effect through the models' ``adj_constraint`` hook (STE-GCN's
-    composed path and AttSTEGCN build and multiply their row blocks of the
-    normalized adjacency); ``core_spmm`` (STE-GCN ``fused=True``) reads the
-    square adjacency, so the fused step runs it whole on each rank, as XLA
-    must run an opaque kernel. The gradient is the same on every rank."""
+    JAX leaves the partition to XLA; here nothing partitions on its own.
+    The placements record the layout, and every leaf stays whole on each
+    rank (:meth:`NamedSharding.put`), so the step of a model with no
+    sharded body (STE-GCN, fused or composed: ``core_spmm`` reads the
+    square adjacency) is the unsharded step, run on every rank. A model
+    whose ``adj_constraint`` the caller has set to a row placement
+    (AttSTEGCN, as in JAX) builds and multiplies its row blocks of the
+    normalized adjacency in the step. The gradient is the same on every
+    rank."""
     _device(mesh, device)
-    placed: dict = {}
 
     def step(params: dict, idx, y):
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        with _adj_placement(model, placed.get("adj")):
-            loss = loss_fn(model.apply(p, idx), y)
-            grads = torch.autograd.grad(loss, list(p.values()),
-                                        allow_unused=True)
+        loss = loss_fn(model.apply(p, idx), y)
+        grads = torch.autograd.grad(loss, list(p.values()),
+                                    allow_unused=True)
         new = {k: (v - lr * g if g is not None else v).detach()
                for (k, v), g in zip(p.items(), grads)}
         return new, loss.detach()
 
     def shard_params(params: dict):
         shardings = shard_gnn_params(mesh, params)
-        placed.clear()
-        placed.update(shardings)
         return ({k: shardings[k].put(v) for k, v in params.items()},
                 shardings)
 
@@ -515,10 +499,7 @@ def _local_only_aggregate(mesh, graph):
     """A one-part graph axis: no halo, the plain SpMM."""
     spmm = graph.spmm if not isinstance(graph, SparseGraph) \
         else FastAggGraph(graph).spmm
-    stats = {"halo_rows_per_device": 0,
-             "allgather_rows_per_device": 0,
-             "comm_volume_ratio": 0.0}
-    return spmm, graph_sharding(mesh).put, stats
+    return spmm, graph_sharding(mesh).put, halo_stats(graph.n_nodes, 1, 0)
 
 
 def _halo_aggregate(mesh, plan: dict, ring: bool, device):
@@ -555,11 +536,27 @@ def make_sharded_sparse_aggregate(mesh, graph, d_features: int = 0,
     return aggregate_fn, graph_sharding(mesh).put
 
 
-def _stats(graph, n_parts: int, crossing: int) -> dict:
-    allgather_crossing = graph.n_nodes * (n_parts - 1) // n_parts
+def halo_stats(n_nodes: int, n_parts: int, crossing: int) -> dict:
+    """Rows that cross the link per rank and application of a halo
+    aggregate whose halo moves ``crossing`` rows.
+
+    JAX's keys count the halo alone, against one all-gather of the
+    features (its bodies leave their rows sharded): ``halo_rows_per_
+    device``, ``allgather_rows_per_device``, ``comm_volume_ratio``. The
+    port's bodies end in a gather of their rows as well
+    (``exit_gather_rows_per_device``, as many as an all-gather), so
+    ``rows_per_device`` counts halo plus exit gather, and
+    ``port_volume_ratio`` compares it with the port's all-gather aggregate
+    (:func:`make_sharded_sparse_aggregate`: an all-gather in, a gather
+    out)."""
+    allgather = n_nodes * (n_parts - 1) // n_parts
     return {"halo_rows_per_device": crossing,
-            "allgather_rows_per_device": allgather_crossing,
-            "comm_volume_ratio": crossing / max(allgather_crossing, 1)}
+            "allgather_rows_per_device": allgather,
+            "comm_volume_ratio": crossing / max(allgather, 1),
+            "exit_gather_rows_per_device": allgather,
+            "rows_per_device": crossing + allgather,
+            "port_volume_ratio": ((crossing + allgather)
+                                  / max(2 * allgather, 1))}
 
 
 def make_halo_sparse_aggregate(mesh, graph, d_features: int = 0,
@@ -569,12 +566,15 @@ def make_halo_sparse_aggregate(mesh, graph, d_features: int = 0,
     Per rank and application, (n_parts - 1) * H halo rows cross the link
     (the all_to_all's self-chunk stays local) instead of the
     N * (n_parts - 1) / n_parts rows an all-gather moves
-    (:func:`make_sharded_sparse_aggregate`). The all_to_all is issued
+    (:func:`make_sharded_sparse_aggregate`); the body's exit gather moves
+    N * (n_parts - 1) / n_parts rows more (see :func:`halo_stats`). The
+    all_to_all is issued
     before the local-edge sum. Differentiable: the cotangent takes the
     transposed exchange, so the GGN products reuse it.
 
-    Returns ``(aggregate_fn, put, stats)``; ``stats`` compares the rows
-    that cross with the all-gather's."""
+    Returns ``(aggregate_fn, put, stats)``; ``stats``
+    (:func:`halo_stats`) compares the rows that cross with the
+    all-gather's, the halo alone and with the exit gather."""
     dev = _device(mesh, device)
     n_parts = _n_parts(mesh)
     if n_parts == 1:
@@ -582,7 +582,7 @@ def make_halo_sparse_aggregate(mesh, graph, d_features: int = 0,
     plan = build_halo_exchange(graph, n_parts)
     return (_halo_aggregate(mesh, plan, False, dev),
             graph_sharding(mesh).put,
-            _stats(graph, n_parts, (n_parts - 1) * plan["H"]))
+            halo_stats(graph.n_nodes, n_parts, (n_parts - 1) * plan["H"]))
 
 
 def make_ring_halo_sparse_aggregate(mesh, graph, d_features: int = 0,
@@ -594,7 +594,7 @@ def make_ring_halo_sparse_aggregate(mesh, graph, d_features: int = 0,
     if n_parts == 1:
         return _local_only_aggregate(mesh, graph)
     plan = build_ring_halo_exchange(graph, n_parts)
-    stats = _stats(graph, n_parts, int(sum(plan["H_s"])))
+    stats = halo_stats(graph.n_nodes, n_parts, int(sum(plan["H_s"])))
     stats["H_s"] = plan["H_s"]
     return (_halo_aggregate(mesh, plan, True, dev),
             graph_sharding(mesh).put, stats)
@@ -611,7 +611,10 @@ class HaloAggGraph:
     transformed h rows, the softmax over local and remote edges).
     ``schedule``: "alltoall", "ring" or "auto", which takes the ring when
     it moves less than 0.8 of the all_to_all's rows (priced from
-    :func:`halo_widths`)."""
+    :func:`halo_widths`). Every rank still holds the whole features and
+    activations, and each aggregation gathers its rows on the way out
+    (``stats``, :func:`halo_stats`): memory does not fall with the
+    ranks."""
 
     def __init__(self, mesh, graph, d_features: int = 0,
                  schedule: str = "auto", device=None):
@@ -627,7 +630,9 @@ class HaloAggGraph:
         if schedule == "auto" and n_parts > 1:
             # rows that cross: the ring pads per shift, all_to_all pads
             # every pair to the widest but keeps its self-chunk local; the
-            # one collective wins unless the ring saves 20 %
+            # one collective wins unless the ring saves 20 % (both pay
+            # the same exit gather, which the price leaves out, as JAX's
+            # bodies have none)
             W = halo_widths(graph, n_parts)
             H = int(W.max())
             ring_rows = sum(
@@ -721,10 +726,13 @@ def make_row_sharded_gat_attention(mesh, row_block: Optional[int] = 512,
     dense GAT structure learning (the adjacency is the learnable N x N
     object).
 
-    Each rank owns an (N/P, N) row block of the adjacency and computes the
-    masked softmax of its target rows. Only the per-node tensors move: one
-    all-gather of alpha_src (N, heads) and one of h (N, heads, F), O(N *
-    hidden) bytes against the O(N^2) adjacency, which never moves. Within
+    Each rank computes the masked softmax of the target rows of its
+    (N/P, N) row block of the adjacency. Only the per-node tensors move:
+    one all-gather of alpha_src (N, heads) and one of h (N, heads, F), and
+    the gather of the (N, heads, F) output, O(N * hidden) bytes against
+    the O(N^2) adjacency, which never moves. Each rank still holds the
+    whole adjacency (every value outside a body is whole) and reads its
+    row block in place, so its memory does not fall with P. Within
     a rank, ``use_flash=True`` runs the flash kernels on the (R, N) row
     shard (``flash_fwd_kernel``, and ``flash_bwd_kernel`` +
     ``flash_bwd_reduce`` in the backward); else the plain attention by

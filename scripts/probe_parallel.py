@@ -11,21 +11,65 @@ unsharded flash attention; the row-sharded flash attention of
 replaced by local copies (what the NCCL calls cost on the host); and the
 row-sharded step again. Each: the median of 20 steps by CUDA events, the
 host ms of 10 steps ended by a synchronize, and one step under
-torch.profiler (device ms, kernels, the largest by name). Then the host
-cost of one collective: ``all_gather`` of the (N, 8, 8) h as a raw NCCL
-call and through the port's Function, the mean of 200 calls. Prints
-one JSON line per measurement and writes them to
-``chiprun_out/probe_parallel.json``.
+torch.profiler (device ms, kernels, the largest by name). Then where the
+host time of a step goes: 10 steps of the unsharded and of the row-sharded
+step under cProfile, each function's own time a step (``self_ms``) and
+calls a step, the largest first, and each step's total host ms under
+cProfile split into the port's ``parallel`` modules, torch's autograd,
+torch.distributed and the rest. Then the host cost of one collective:
+``all_gather`` of the (N, 8, 8) h as a raw NCCL call and through the
+port's Function, the mean of 200 calls. Prints one JSON line per
+measurement and writes them to ``chiprun_out/probe_parallel.json``.
 """
 
 from __future__ import annotations
 
+import cProfile
 import json
 import os
+import pstats
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _where(filename: str) -> str:
+    """The part of the program a function's file belongs to."""
+    if "laplace_gnn_torch/parallel" in filename:
+        return "port parallel"
+    if "laplace_gnn_torch" in filename:
+        return "port other"
+    if "torch/distributed" in filename:
+        return "torch.distributed"
+    if "torch/autograd" in filename or "torch/_functorch" in filename:
+        return "torch autograd"
+    if filename.startswith("~") or filename.startswith("<"):
+        return "builtins and C calls"
+    return "other Python"
+
+
+def host_profile(step, steps: int = 10, top: int = 20) -> dict:
+    """cProfile of ``steps`` calls of ``step``: the largest functions by
+    their own time, and the host time a step by part of the program."""
+    prof = cProfile.Profile()
+    prof.enable()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    wall = time.perf_counter() - t0
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows, parts = [], {}
+    for (fname, line, func), (_, ncalls, tt, _, _) in stats.items():
+        part = _where(fname)
+        parts[part] = parts.get(part, 0.0) + tt / steps * 1e3
+        rows.append({"fn": f"{os.path.basename(fname)}:{line}:{func}",
+                     "part": part, "self_ms": tt / steps * 1e3,
+                     "calls": ncalls / steps})
+    rows.sort(key=lambda r: -r["self_ms"])
+    return {"wall_ms": wall / steps * 1e3, "parts_ms": parts,
+            "top": rows[:top]}
 
 
 def main() -> int:
@@ -94,6 +138,10 @@ def main() -> int:
         finally:
             C._all_gather, C._reduce_scatter, C._all_reduce = saved
         step_row("row-sharded flash again", progs["sharded"])
+        for label, pr in (("unsharded flash", progs["unsharded"]),
+                          ("row-sharded flash", progs["sharded"])):
+            emit({"host_profile": label,
+                  **host_profile(lambda: pr.train_step(idx, yy))})
 
         ax = C.mesh_axis(mesh)
         h = torch.randn(n, 8, 8, device="cuda")

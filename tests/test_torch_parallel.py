@@ -312,6 +312,41 @@ def test_projected_scaling_model_and_defaults():
     assert TSC.dcn_projection.__defaults__[1] == TSC.H100_NIC_BW
 
 
+@pytest.mark.parametrize("overlap", [True, False])
+def test_projected_scaling_exit_gather(overlap):
+    """The port's bodies gather their output rows: priced after the body,
+    on top of the halo-only row, which is JAX's."""
+    rng = np.random.default_rng(1)
+    n = 66
+    ei = np.stack([rng.integers(0, n, 8 * n), rng.integers(0, n, 8 * n)])
+    g = TC.sparse_from_edge_index(ei, n, normalize="sym", device="cpu")
+    kw = dict(n_chips=(2, 4), overlap=overlap, ici_bw=4.5e11)
+    halo = TSC.projected_scaling(g, 32, 1e-4, **kw)
+    both = TSC.projected_scaling(g, 32, 1e-4, exit_gather=True, **kw)
+    for a, b in zip(halo, both):
+        assert "exit_rows" not in a
+        assert b["exit_rows"] == (a["n"] - 1) * -(-n // a["n"])
+        t_exit = b["exit_rows"] * 32 * 4 / 4.5e11 * 1e6
+        np.testing.assert_allclose(b["t_exit_us"], t_exit, rtol=1e-12)
+        np.testing.assert_allclose(b["t_step_us"], a["t_step_us"] + t_exit,
+                                   rtol=1e-12)
+        assert b["t_comm_us"] == a["t_comm_us"]
+        assert b["efficiency"] < a["efficiency"]
+
+
+@pytest.mark.parametrize("n_parts,crossing", [(1, 0), (4, 30), (3, 0)])
+def test_halo_stats_counts_exit_gather(n_parts, crossing):
+    st = TS.halo_stats(96, n_parts, crossing)
+    allgather = 96 * (n_parts - 1) // n_parts
+    assert st["halo_rows_per_device"] == crossing
+    assert st["allgather_rows_per_device"] == allgather
+    assert st["comm_volume_ratio"] == crossing / max(allgather, 1)
+    assert st["exit_gather_rows_per_device"] == allgather
+    assert st["rows_per_device"] == crossing + allgather
+    assert st["port_volume_ratio"] == (crossing + allgather) / max(
+        2 * allgather, 1)
+
+
 def _stand_in_mesh(graph, model):
     """The two attributes shard_gnn_params reads of a DeviceMesh."""
     return types.SimpleNamespace(mesh_dim_names=("graph", "model"),

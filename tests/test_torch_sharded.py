@@ -183,7 +183,16 @@ def test_sparse_aggregates(world, name):
     _close(out[f"sparse_{name}"][0], val)
     _close(out[f"sparse_{name}"][1], gx)
     if stats:
-        assert out[f"stats_{name}"] == stats[0]
+        # JAX's keys (the halo alone) equal; the port's bodies also gather
+        # their rows on the way out, which its own keys count
+        got = out[f"stats_{name}"]
+        assert {k: got[k] for k in stats[0]} == stats[0]
+        exit_rows = W.N_AGG * (WORLD - 1) // WORLD
+        assert got["exit_gather_rows_per_device"] == exit_rows
+        assert got["rows_per_device"] == \
+            stats[0]["halo_rows_per_device"] + exit_rows
+        assert got["port_volume_ratio"] == got["rows_per_device"] / (
+            2 * exit_rows)
 
 
 def test_halo_vmap_jvp_and_bits(world):
