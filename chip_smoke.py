@@ -6,7 +6,7 @@
     python3 chip_smoke.py --only core_spmm  # build + phase 2, kernel work
     python3 chip_smoke.py --only flash      # build + phase 4, kernel work
     python3 chip_smoke.py --only sparse     # phase 18 alone, no build
-    python3 chip_smoke.py --only parallel   # build + phase 19
+    python3 chip_smoke.py --only parallel   # build + phases 19 and 20
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
@@ -220,17 +220,32 @@ Phases, each fatal:
      at one part), its train step timed; RCM order, edge-balanced blocks
      padded to one width, both halo plans and every rank's body against
      the whole SpMM (1e-5, twice the same bits), each schedule's
-     rows that cross (the halo alone, JAX's comm_volume_ratio, and with
-     the bodies' exit gather) and the projected scaling at 2 / 4 / 8 GPUs
-     from the measured SpMM, halo alone and with the exit gather; the
-     halo GAT's P = 4 bodies on a 4096-node cut; (d)
+     rows that cross (JAX's comm_volume_ratio: the bodies return their
+     blocks) and the projected scaling at 2 / 4 / 8 GPUs from the
+     measured SpMM; the halo GAT's P = 4 bodies on a 4096-node cut; (d)
      ``make_sharded_train_step`` on STE-GCN at Cora's width, fused
-     (``core_spmm``, launches counted) and composed, 10 steps each the
-     same bits as a plain autograd SGD step written here (STE-GCN has no
-     sharded body: its sharded step is the unsharded step on each rank),
-     and an AttSTEGCN Kron hyperstep with ``adj_constraint`` (value and
-     d/d adj_W within 1e-4 of the unsharded ones). Every kernel's count,
-     ``matmul``'s too, is set to 0 before the parts and read after.
+     (``core_spmm``, launches counted; it keeps the square adjacency, so
+     its sharded step is the unsharded step on each rank) and composed
+     (on the rank's row block), 10 steps each the same bits as a plain
+     autograd SGD step written here; the composed Kron hyperstep on the
+     row block the same bits as the unsharded one; and an AttSTEGCN Kron
+     hyperstep with ``adj_constraint`` (value and d/d adj_W within 1e-4
+     of the unsharded ones). Every kernel's count, ``matmul``'s too, is
+     set to 0 before the parts and read after;
+ 20. per-rank memory and the DCN bodies, after phase 19's group is
+     destroyed: (a) rank 0 of a 4-rank fake group
+     (``torch.testing._internal.distributed.fake_pg``, its collectives
+     move nothing, every tensor has its real shape; the mesh takes it
+     only with ``allow_fake=True``) against the unsharded step, peak
+     bytes above the step's start by ``torch.cuda.max_memory_allocated``:
+     the composed STE-GCN Kron hyperstep at
+     ``scripts/shard_scale_bench.py``'s size (N = 8192, d = 32, hidden
+     32, 7 classes, density 14e-4, 1024 train nodes, f32; the ratio must
+     be at least 3.0) and the SparseGCN train step on the padded
+     arxiv-shaped graph (with the features each rank holds); (b) the DCN
+     bodies at (dcn, graph) = (2, 2) rank by rank on the card against the
+     unsharded SpMM and GAT edge softmax (1e-5), with the halo and
+     dcn_psum rows. No kernel is on these paths.
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -239,8 +254,8 @@ it runs phases 1 (``matmul.cu`` alone) and 7, and its last line is
 core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2, and
 ``--only flash`` phases 1 (``flash_attention.cu`` alone) and 4, and
 ``--only sparse`` phase 18 alone (it builds no kernel), ``--only
-parallel`` phases 1 (``core_spmm.cu`` and ``flash_attention.cu``) and
-19. Exits
+parallel`` phases 1 (``core_spmm.cu`` and ``flash_attention.cu``), 19
+and 20. Exits
 non-zero, with no result, when there is no CUDA device or the package is
 not beside it.
 Per-shape measurements also go to ``chiprun_out/chip_smoke.json``, and
@@ -3706,11 +3721,15 @@ def parallel_gat(torch, P, fa, mesh, card):
         :n // 10].to("cuda")
     yy = y[idx]
     impl = P.make_row_sharded_gat_attention(mesh, use_flash=True)
+    rows = P.graph_sharding(mesh)
     out = {}
     progs = {}
     for name, attn in (("sharded", impl), ("unsharded", "flash")):
-        progs[name] = gat_programs(gat_model(torch, X, adj, attn),
-                                   int(idx.shape[0]))
+        model = gat_model(torch, X, adj, attn)
+        # the sharded model runs on its row block (at world size 1, all
+        # the rows)
+        progs[name] = gat_programs(model.placed(rows) if attn is impl
+                                   else model, int(idx.shape[0]))
         progs[name].train_step(idx, yy)
     torch.cuda.synchronize()
     same = _same_params(torch, progs["sharded"].params,
@@ -3749,6 +3768,8 @@ def parallel_gat(torch, P, fa, mesh, card):
     nm = {}
     for name, attn in (("sharded", impl), ("unsharded", "flash")):
         model = gat_model(torch, X, adj, attn)
+        if attn is impl:
+            model = model.placed(rows)
         twin = model.jvp_safe().convs[0].attention_impl
         if name == "sharded" and not (isinstance(
                 twin, type(impl)) and twin.use_flash is False):
@@ -3936,10 +3957,7 @@ def parallel_sparse(torch, np, P, S, mesh, card):
     torch.cuda.empty_cache()
     # P = 4 on the card, on the RCM-ordered graph padded to equal blocks
     t0 = time.perf_counter()
-    order = P.rcm_order(ei, ARXIV_N)
-    ei_r, x_r = P.apply_node_order(ei, order, x)
-    offsets = P.edge_balanced_blocks(ei_r, ARXIV_N, P_CARD)
-    ei_p, n_p, node_map, x_p = P.pad_to_blocks(ei_r, offsets, x_r)
+    ei_r, ei_p, n_p, node_map, x_p, _ = arxiv_blocks(np, P, x, y, ei)
     g4 = C.sparse_from_edge_index(ei_p, n_p, normalize="sym", device="cuda")
     plans = {"alltoall": P.build_halo_exchange(g4, P_CARD),
              "ring": P.build_ring_halo_exchange(g4, P_CARD)}
@@ -3964,30 +3982,21 @@ def parallel_sparse(torch, np, P, S, mesh, card):
     spmm_ms = cold_ms(torch, lambda: f(xs))
     proj = scaling.projected_scaling(g4, SPARSE_HIDDEN, spmm_ms / 1e3,
                                      n_chips=(2, 4, 8))
-    proj_exit = scaling.projected_scaling(g4, SPARSE_HIDDEN, spmm_ms / 1e3,
-                                          n_chips=(2, 4, 8),
-                                          exit_gather=True)
     out["spmm_ms"], out["projected"] = spmm_ms, proj
-    out["projected_exit_gather"] = proj_exit
     print(f"parallel (c) P={P_CARD} halo SpMM on one card (RCM, "
           f"edge-balanced blocks padded to {n_p} nodes, plans "
           f"{out['plan_s']:.1f} s): all_to_all rel "
           f"{out['p4_alltoall']['rel']:.2e}, ring rel "
           f"{out['p4_ring']['rel']:.2e} (bound {F32_SPMM_TOL}, against the "
-          f"whole SpMM), twice the same bits; rows that cross per rank, "
-          f"the halo alone against one all-gather (comm_volume_ratio) "
-          f"all_to_all {out['p4_alltoall']['comm_volume_ratio']:.4f}, ring "
+          f"whole SpMM), twice the same bits; rows that cross per rank "
+          f"against one all-gather (comm_volume_ratio; the bodies return "
+          f"their blocks) all_to_all "
+          f"{out['p4_alltoall']['comm_volume_ratio']:.4f}, ring "
           f"{out['p4_ring']['comm_volume_ratio']:.4f} (H_s "
-          f"{out['p4_ring']['H_s']}); with the bodies' exit gather of "
-          f"{out['p4_ring']['exit_gather_rows_per_device']} rows, against "
-          f"the port's all-gather aggregate (port_volume_ratio) all_to_all "
-          f"{out['p4_alltoall']['port_volume_ratio']:.4f}, ring "
-          f"{out['p4_ring']['port_volume_ratio']:.4f}; one-card SpMM "
-          f"{spmm_ms:.3f} ms  [{card}]", flush=True)
-    print("  projected, the halo alone (H100 NVLink 4.5e11 B/s, not "
-          "measured):\n" + scaling.format_table(proj), flush=True)
-    print("  projected with the exit gather (the port as it stands):\n"
-          + scaling.format_table(proj_exit), flush=True)
+          f"{out['p4_ring']['H_s']}); one-card SpMM {spmm_ms:.3f} ms  "
+          f"[{card}]", flush=True)
+    print("  projected (H100 NVLink 4.5e11 B/s, not measured):\n"
+          + scaling.format_table(proj), flush=True)
     # the halo GAT's P = 4 bodies on a 4096-node cut of the ordered graph
     n_c = 4096
     keep = (ei_r[0] < n_c) & (ei_r[1] < n_c)
@@ -4027,14 +4036,28 @@ def parallel_sparse(torch, np, P, S, mesh, card):
     return out
 
 
+def arxiv_blocks(np, P, x, y, ei):
+    """The arxiv-shaped graph in RCM order, cut into P_CARD edge-balanced
+    blocks padded to one width: (the ordered edges, the padded edges, the
+    padded node count, each node's new id, the padded x and y)."""
+    order = P.rcm_order(ei, ARXIV_N)
+    ei_r, x_r, y_r = P.apply_node_order(ei, order, x, y)
+    offsets = P.edge_balanced_blocks(ei_r, ARXIV_N, P_CARD)
+    ei_p, n_p, node_map, x_p, y_p = P.pad_to_blocks(ei_r, offsets, x_r, y_r)
+    return ei_r, ei_p, n_p, node_map, x_p, y_p
+
+
 def parallel_stegcn(torch, np, P, fs, mesh, card):
     """(d): make_sharded_train_step at Cora's width (phase 3's graph), 10
     steps with fused=True (core_spmm) and fused=False, each the same bits
     as 10 plain autograd SGD steps on the model's ``apply``, written here
-    apart from the factory; STE-GCN has no sharded body, so its sharded
-    step is by design the unsharded step, run on each rank. Then one
-    AttSTEGCN hyperstep with ``adj_constraint`` (its rows of the score
-    matrix built per rank) against the unsharded one."""
+    apart from the factory. The composed step runs on the rank's row
+    block (at world size 1 all the rows: the same arithmetic as the
+    unsharded step); the fused one keeps the square adjacency, so it is by
+    design the unsharded step, run on each rank. Then the composed Kron
+    hyperstep on its row block against the unsharded one (the same bits),
+    and one AttSTEGCN hyperstep with ``adj_constraint`` (its rows of the
+    score matrix built per rank) against the unsharded one."""
     from laplace_gnn_torch.models import AttSTEGCN, STEGCN
     from laplace_gnn_torch.training.marglik_gnn import (_ce_mean,
                                                         make_neg_marglik_fn)
@@ -4092,6 +4115,40 @@ def parallel_stegcn(torch, np, P, fs, mesh, card):
               f"as plain autograd SGD steps: {same}; core_spmm launches "
               f"{launches}  [{card}]", flush=True)
         del model, p_sh, p_un
+    # the composed Kron hyperstep on the row block against the unsharded
+    model = STEGCN(N_FEAT, HIDDEN, N_CLASS, 2, X, adj, dropout_p=0.0,
+                   device="cuda", generator=torch.Generator().manual_seed(0))
+    hs = {}
+    for name, m in (("sharded", model.placed(P.graph_sharding(mesh))),
+                    ("unsharded", model)):
+        fn = make_neg_marglik_fn(m, "classification", "kron", "all",
+                                 N=N_TRAIN)
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in model.params().items()}
+        t0 = time.perf_counter()
+        val = fn(p, tr, yt)
+        (g,) = torch.autograd.grad(val, [p["adj"]])
+        torch.cuda.synchronize()
+        hs[name] = (time.perf_counter() - t0, val.detach(), g)
+    # the vmapped pullback's collectives move the batch axis (dim 1), so
+    # cuBLAS meets other layouts than in the unsharded pullback: rounding
+    same = bool(torch.equal(hs["sharded"][1], hs["unsharded"][1])
+                and torch.equal(hs["sharded"][2], hs["unsharded"][2]))
+    nm_rel = _rel(hs["sharded"][1], hs["unsharded"][1])
+    g_rel = _rel(hs["sharded"][2], hs["unsharded"][2])
+    out["composed_hyperstep"] = {
+        "s": {k: v[0] for k, v in hs.items()}, "same_bits": same,
+        "neg_marglik": float(hs["sharded"][1]), "neg_marglik_rel": nm_rel,
+        "adj_grad_rel": g_rel}
+    if not (nm_rel <= F32_GRAD_TOL and g_rel <= F32_GRAD_TOL):
+        raise AssertionError(f"composed STE-GCN hyperstep on the row "
+                             f"block: {out['composed_hyperstep']}")
+    print(f"parallel (d) composed STE-GCN Kron hyperstep on the row block: "
+          f"{hs['sharded'][0]:.3f} s (unsharded {hs['unsharded'][0]:.3f} "
+          f"s); -log marglik relative gap {nm_rel:.2e}, d/d adj relative "
+          f"{g_rel:.2e} (bound {F32_GRAD_TOL}), the same bits: {same}  "
+          f"[{card}]", flush=True)
+    del model, hs
     # one AttSTEGCN hyperstep, the score matrix's rows on the graph axis
     model = AttSTEGCN(N_FEAT, HIDDEN, N_CLASS, 2, X, adj, dropout_p=0.0,
                       device="cuda",
@@ -4177,6 +4234,268 @@ def phase_parallel(torch, np, fa, fs, mm, card, peaks):
     print(f"parallel launches on the sharded paths: {out['launches']}",
           flush=True)
     return out
+
+
+# phase 20: per-rank memory on row blocks, and the DCN bodies
+MEM_N, MEM_D, MEM_HIDDEN, MEM_C = 8192, 32, 32, 7   # shard_scale_bench.py
+MEM_DENSITY, MEM_TRAIN = 14e-4, 1024
+MEM_RATIO_MIN = 3.0         # rank 0's footprint, unsharded over sharded at
+                            # P = 4: 75 % of the ideal 4x (JAX's slow test
+                            # asks > 6 of 8)
+DCN_SLICES = 2              # (dcn, graph) = (2, 2) on the one card
+
+
+def _footprint(torch, fn):
+    """(fn's result, the bytes it allocated at its peak above what was
+    allocated before it): its inputs made inside, its temporaries and its
+    outputs, as JAX's memory analysis counts a program's argument +
+    temporary + output bytes."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def memory_stegcn(torch, np, P, mesh, card):
+    """(a) the composed STE-GCN Kron hyperstep (value and every gradient)
+    at scripts/shard_scale_bench.py's size, unsharded and as rank 0 of a
+    4-rank group (``mesh``, a fake group: its collectives move nothing,
+    every tensor has its real shape). A footprint counts the step's inputs
+    (the parameters, ``adj`` whole or its row block), temporaries and
+    outputs; the model object's own whole adjacency (its ``adj``
+    parameter and ``init_adj``, which the functional step does not read)
+    is held before, on both sides."""
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.training.marglik_gnn import make_neg_marglik_fn
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((MEM_N, MEM_D)).astype(np.float32)
+    adj = (rng.random((MEM_N, MEM_N)) < MEM_DENSITY).astype(np.float32)
+    adj = np.minimum(adj + adj.T, 1.0)
+    np.fill_diagonal(adj, 0.0)
+    y = torch.as_tensor(rng.integers(0, MEM_C, MEM_TRAIN), device="cuda")
+    idx = torch.arange(MEM_TRAIN, device="cuda")
+    model = STEGCN(MEM_D, MEM_HIDDEN, MEM_C, 2, X, adj, dropout_p=0.0,
+                   device="cuda", generator=torch.Generator().manual_seed(0))
+    del adj
+    rows = P.graph_sharding(mesh)
+    whole = model.params()
+    out = {}
+    for name, m, place in (
+            ("unsharded", model, lambda k, v: v.detach().clone()),
+            ("rank0_of_4", model.placed(rows),
+             lambda k, v: rows.put(v) if k == "adj" else v.detach().clone())):
+        fn = make_neg_marglik_fn(m, "classification", "kron", "all",
+                                 N=MEM_TRAIN)
+
+        def hyperstep():
+            p = {k: place(k, v).requires_grad_(True)
+                 for k, v in whole.items()}
+            val = fn(p, idx, y)
+            grads = dict(zip(p, torch.autograd.grad(val, list(p.values()))))
+            return (float(val.detach()), tuple(p["adj"].shape),
+                    tuple(grads["adj"].shape))
+
+        t0 = time.perf_counter()
+        (val, adj_shape, g_shape), nbytes = _footprint(torch, hyperstep)
+        out[name] = {"bytes": nbytes, "gb": nbytes / 1e9,
+                     "s": time.perf_counter() - t0, "adj_shape": adj_shape,
+                     "adj_grad_shape": g_shape, "finite": math.isfinite(val)}
+    ratio = out["unsharded"]["bytes"] / out["rank0_of_4"]["bytes"]
+    out["ratio"] = ratio
+    r = MEM_N // P_CARD
+    if not (out["rank0_of_4"]["adj_shape"] == (r, MEM_N)
+            and out["rank0_of_4"]["adj_grad_shape"] == (r, MEM_N)
+            and out["unsharded"]["finite"] and out["rank0_of_4"]["finite"]):
+        raise AssertionError(f"phase 20 (a) STE-GCN hyperstep: {out}")
+    print(f"phase 20 (a) composed STE-GCN Kron hyperstep N={MEM_N} "
+          f"(d={MEM_D}, hidden {MEM_HIDDEN}, {MEM_C} classes, {MEM_TRAIN} "
+          f"train, f32): unsharded {out['unsharded']['gb']:.3f} GB, rank 0 "
+          f"of {P_CARD} (fake group, adj block {r}x{MEM_N}) "
+          f"{out['rank0_of_4']['gb']:.3f} GB: per-rank memory ratio "
+          f"{ratio:.3f}x (bound {MEM_RATIO_MIN}x; torch.cuda."
+          f"max_memory_allocated)  [{card}]", flush=True)
+    if ratio < MEM_RATIO_MIN:
+        raise AssertionError(f"per-rank memory ratio {ratio:.3f} below "
+                             f"{MEM_RATIO_MIN}")
+    del model, whole, m, fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def memory_sparse(torch, P, C, mesh, blocks, card):
+    """(a) the SparseGCN train step (forward, cross entropy on every
+    tenth node, gradients, the SGD update) at phase 18's width on the
+    padded arxiv-shaped graph, unsharded (FastAggGraph) and as rank 0 of
+    4 (HaloAggGraph on the fake group). A footprint is the step's
+    allocations plus the features the rank holds (whole, or its block);
+    the graph's edge lists and plans are held before, on both sides."""
+    from laplace_gnn_torch.models import SparseGCN
+    from laplace_gnn_torch.training.marglik_gnn import _ce_mean
+    _, ei_p, n_p, node_map, x_p, y_p = blocks
+    g = C.sparse_from_edge_index(ei_p, n_p, normalize="sym", device="cuda")
+    tr = torch.as_tensor(node_map[::10], device="cuda")
+    ytr = torch.as_tensor(y_p, device="cuda")[tr]
+    out = {}
+    for name, graph in (("unsharded", g),
+                        ("rank0_of_4", P.HaloAggGraph(mesh, g,
+                                                      device="cuda"))):
+        put = graph.put if name != "unsharded" else (
+            lambda v: torch.as_tensor(v).to("cuda", copy=True))
+        model = SparseGCN(ARXIV_F, SPARSE_HIDDEN, ARXIV_C, SPARSE_LAYERS,
+                          put(x_p), graph, dropout_p=0.0, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+        params = model.params()
+
+        def step():
+            p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in params.items()}
+            loss = _ce_mean(model.apply(p, tr), ytr)
+            grads = torch.autograd.grad(loss, list(p.values()))
+            return {k: (v - 0.01 * gr).detach()
+                    for (k, v), gr in zip(p.items(), grads)}, loss.detach()
+
+        t0 = time.perf_counter()
+        (_, loss), nbytes = _footprint(torch, step)
+        x_bytes = model.X.numel() * model.X.element_size()
+        out[name] = {"step_bytes": nbytes, "x_bytes": x_bytes,
+                     "bytes": nbytes + x_bytes,
+                     "gb": (nbytes + x_bytes) / 1e9,
+                     "s": time.perf_counter() - t0,
+                     "x_rows": int(model.X.shape[0]),
+                     "finite": bool(torch.isfinite(loss))}
+        if name != "unsharded":
+            out[name]["schedule"] = graph.schedule
+            out[name]["stats"] = graph.stats
+        del model, params
+    ratio = out["unsharded"]["bytes"] / out["rank0_of_4"]["bytes"]
+    out["ratio"] = ratio
+    if not (out["rank0_of_4"]["x_rows"] == n_p // P_CARD
+            and out["unsharded"]["finite"]):
+        raise AssertionError(f"phase 20 (a) SparseGCN step: {out}")
+    print(f"phase 20 (a) SparseGCN train step at arxiv's shape ({n_p} "
+          f"nodes padded, hidden {SPARSE_HIDDEN}): unsharded "
+          f"{out['unsharded']['gb']:.3f} GB, rank 0 of {P_CARD} (fake "
+          f"group, {out['rank0_of_4']['schedule']}, block of "
+          f"{n_p // P_CARD} rows) {out['rank0_of_4']['gb']:.3f} GB: "
+          f"per-rank memory ratio {ratio:.3f}x  [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def dcn_bodies(torch, np, P, S, C, blocks, card):
+    """(b) the DCN bodies at (dcn, graph) = (2, 2) on the one card, rank
+    by rank: each slice's edge stripe with its halo plan (common paddings),
+    every rank's partial rows, summed over the slices and stacked over
+    the graph ranks, against the unsharded SpMM (the normalized graph)
+    and GAT edge softmax (the graph with self-loops) at the arxiv shape;
+    the GAT's maxima taken over the slices before the exponentials."""
+    from laplace_gnn_torch.parallel import distributed as D
+    _, ei_p, n_p, _, _, _ = blocks
+    n_g = P_CARD // DCN_SLICES
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    # the SpMM
+    g = C.sparse_from_edge_index(ei_p, n_p, normalize="sym", device="cuda")
+    t0 = time.perf_counter()
+    slices = D.stripe_edges(g, DCN_SLICES)
+    plans, H = D.dcn_halo_plans(g, slices, n_g)
+    out["plan_s"] = time.perf_counter() - t0
+    B = int(plans[0]["block"])
+    xs = torch.randn(n_p, SPARSE_HIDDEN, device="cuda", generator=gen)
+    want = C.make_spmm(g)(xs)
+    rps = [[S.rank_plan(pl, p, "cuda") for p in range(n_g)] for pl in plans]
+    blk = [xs[p * B:(p + 1) * B] for p in range(n_g)]
+    rows = []
+    for p in range(n_g):
+        part = 0
+        for k in range(DCN_SLICES):
+            bufs = [S.halo_send(blk[q], rps[k][q]) for q in range(n_g)]
+            halo = torch.stack([bufs[q][0][p] for q in range(n_g)]
+                               ).reshape(-1, SPARSE_HIDDEN)
+            part = part + S.halo_rows(blk[p], halo, rps[k][p])
+        rows.append(part)
+    got = torch.cat(rows)
+    out["spmm_rel"] = _rel(got, want)
+    out["stats"] = {"halo_rows_per_device": (n_g - 1) * H,
+                    "dcn_psum_rows_per_device": B, "H": H,
+                    "n_dcn": DCN_SLICES, "n_graph": n_g}
+    if out["spmm_rel"] > F32_SPMM_TOL:
+        raise AssertionError(f"DCN SpMM bodies: {out}")
+    del g, want, got, rows
+    # the GAT edge softmax, with self-loops and no normalization
+    gg = C.sparse_from_edge_index(ei_p, n_p, normalize=None, device="cuda")
+    slices = D.stripe_edges(gg, DCN_SLICES)
+    plans, Hg = D.dcn_halo_plans(gg, slices, n_g)
+    rps = [[S.rank_plan(pl, p, "cuda") for p in range(n_g)] for pl in plans]
+    h = torch.randn(n_p, GAT_HEADS, 8, device="cuda", generator=gen)
+    att_s = torch.randn(1, GAT_HEADS, 8, device="cuda", generator=gen)
+    att_d = torch.randn(1, GAT_HEADS, 8, device="cuda", generator=gen)
+    from laplace_gnn_torch.models.sparse_gnn import segment_attention
+    want = segment_attention(gg, h, torch.sum(h * att_s, -1),
+                             torch.sum(h * att_d, -1), 0.2)
+    hb = [h[p * B:(p + 1) * B] for p in range(n_g)]
+    rows = []
+    for p in range(n_g):
+        parts = []
+        for k in range(DCN_SLICES):
+            bufs = [S.halo_send(hb[q], rps[k][q]) for q in range(n_g)]
+            halo = torch.stack([bufs[q][0][p] for q in range(n_g)]
+                               ).reshape(-1, GAT_HEADS, 8)
+            parts.append(D.dcn_gat_sets(hb[p], halo, rps[k][p], att_s,
+                                        att_d, 0.2))
+        smax = parts[0][1]
+        for _, m in parts[1:]:
+            smax = torch.maximum(smax, m)             # the max over 'dcn'
+        smax = D.finite_shift(smax)
+        both = sum(D.dcn_gat_partial(sets, smax, hb[p])
+                   for sets, _ in parts)              # the sum over 'dcn'
+        rows.append(D.dcn_gat_quotient(both, hb[p].dtype))
+    out["gat_rel"] = _rel(torch.cat(rows), want)
+    out["gat_H"] = Hg
+    if out["gat_rel"] > F32_SPMM_TOL:
+        raise AssertionError(f"DCN GAT bodies: {out}")
+    st = out["stats"]
+    print(f"phase 20 (b) DCN bodies at (dcn, graph) = ({DCN_SLICES}, "
+          f"{n_g}) on one card, arxiv's shape ({n_p} nodes, edges striped "
+          f"over the slices, plans {out['plan_s']:.1f} s): SpMM rel "
+          f"{out['spmm_rel']:.2e}, GAT rel {out['gat_rel']:.2e} (bound "
+          f"{F32_SPMM_TOL}, against the unsharded SpMM / edge softmax); "
+          f"per rank and application, halo rows over 'graph' "
+          f"{st['halo_rows_per_device']} (H = {st['H']}), dcn_psum rows "
+          f"{st['dcn_psum_rows_per_device']}  [{card}]", flush=True)
+    del gg, h, want, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_memory_dcn(torch, np, card):
+    """Phase 20: (a) rank 0 of a 4-rank group alone on the card (a fake
+    group, ``allow_fake=True``) against the unsharded step, for the
+    composed STE-GCN Kron hyperstep and the SparseGCN train step; (b) the
+    DCN bodies rank by rank. No kernel is on these paths."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from laplace_gnn_torch import parallel as P
+    from laplace_gnn_torch.graph import container as C
+    from laplace_gnn_torch.parallel import sharded as S
+    x, y, ei = arxiv_like(np)
+    blocks = arxiv_blocks(np, P, x, y, ei)
+    out = {}
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=P_CARD)
+    try:
+        mesh = P.make_mesh(P_CARD, device="cuda", allow_fake=True)
+        out["stegcn"] = memory_stegcn(torch, np, P, mesh, card)
+        out["sparse"] = memory_sparse(torch, P, C, mesh, blocks, card)
+    finally:
+        dist.destroy_process_group()
+    out["dcn"] = dcn_bodies(torch, np, P, S, C, blocks, card)
+    return out
+
 
 
 def build_kernels(cuda_build, out_dir, names=None):
@@ -4266,10 +4585,14 @@ def main(argv=None) -> int:
         parallel = phase_parallel(torch, np, fa, fs, mm, card, peaks)
         print(f"phase 19 phase_parallel: {time.perf_counter() - t0:.3f} s",
               flush=True)
+        t0 = time.perf_counter()
+        memory = phase_memory_dcn(torch, np, card)
+        print(f"phase 20 phase_memory_dcn: {time.perf_counter() - t0:.3f} "
+              f"s", flush=True)
         with open(os.path.join(out_dir, "chip_smoke_parallel.json"),
                   "w") as f:
-            json.dump({"card": card, "kind": kind, "parallel": parallel}, f,
-                      indent=1, default=str)
+            json.dump({"card": card, "kind": kind, "parallel": parallel,
+                       "memory_dcn": memory}, f, indent=1, default=str)
         print(card, flush=True)
         print(json.dumps({"partial": ["parallel"]}), flush=True)
         return 0
@@ -4349,6 +4672,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     parallel = phase("19", phase_parallel, torch, np, fa, fs, mm, card,
                      peaks)
+    torch.cuda.empty_cache()
+    memory = phase("20", phase_memory_dcn, torch, np, card)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -4415,7 +4740,8 @@ def main(argv=None) -> int:
                    "whole_run": whole, "whole_run_small": whole_small,
                    "core_spmm_launched": launched,
                    "sparse": sparse, "sparse_small": sparse_small,
-                   "parallel": parallel, "phase_seconds": seconds,
+                   "parallel": parallel, "memory_dcn": memory,
+                   "phase_seconds": seconds,
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

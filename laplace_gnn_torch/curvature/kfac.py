@@ -33,6 +33,12 @@ With ``mixed_diag=True`` posterior parameters outside every Linear site
 (GAT attention vectors and biases) get curvature-diagonal blocks: exact,
 from forward-mode tangent passes, or a Hutchinson estimate from
 ``diag_probes`` reverse-mode pullbacks.
+
+On a sharded graph the model says so (its ``row_axis``: the axis whose
+ranks hold its row blocks): the activations and the pullbacks' gradients
+are then the rank's rows, and the factors' sums over rows become sums
+over rows and ranks (``collectives.sum_replicated``: whole factors, whose
+cotangents each rank takes as they are). ``N`` stays the global count.
 """
 
 from __future__ import annotations
@@ -244,25 +250,35 @@ def _mixed_diag_blocks(model, w, frozen, X, y, out, uncovered, fisher_type,
     return {n: diag[o:o + sz] for n, o, sz in zip(names, offs[:-1], sizes)}
 
 
-def _cov(g: torch.Tensor, kfac_approx: str) -> torch.Tensor:
+def _over_ranks(t: torch.Tensor, row_axis) -> torch.Tensor:
+    """A sum over the rank's rows, summed over the ranks of ``row_axis``
+    (a whole value); ``t`` itself without one."""
+    if row_axis is None:
+        return t
+    from ..parallel.collectives import sum_replicated
+    return sum_replicated(t, row_axis)
+
+
+def _cov(g: torch.Tensor, kfac_approx: str, row_axis=None) -> torch.Tensor:
     """Sum over the leading (column) axis of g_c^T g_c, with the middle
     dims expanded into rows ('expand') or summed ('reduce'); one product
-    for all columns."""
+    for all columns, then the sum over the ranks' rows."""
     if kfac_approx == "expand":
         g2 = g.reshape(-1, g.shape[-1])
     else:
         g2 = g.reshape(g.shape[0] * g.shape[1], -1, g.shape[-1]).sum(dim=1)
-    return g2.T @ g2
+    return _over_ranks(g2.T @ g2, row_axis)
 
 
-def _input_cov(a: torch.Tensor, kfac_approx: str, N: int) -> torch.Tensor:
+def _input_cov(a: torch.Tensor, kfac_approx: str, N: int,
+               row_axis=None) -> torch.Tensor:
     if kfac_approx == "expand":
         scale = math.prod(a.shape[1:-1])
         a2 = a.reshape(-1, a.shape[-1])
     else:
         scale = 1
         a2 = a.reshape(a.shape[0], -1, a.shape[-1]).mean(dim=1)
-    return (a2.T @ a2) / (N * scale)
+    return _over_ranks(a2.T @ a2, row_axis) / (N * scale)
 
 
 def _static_input_cov(model, N: int, kfac_approx: str, dtype):
@@ -275,8 +291,20 @@ def _static_input_cov(model, N: int, kfac_approx: str, dtype):
     key = (N, kfac_approx, dtype)
     if key not in cache:
         with torch.no_grad():
-            cache[key] = _input_cov(model.X.to(dtype), kfac_approx, N)
+            cache[key] = _input_cov(_rank_features(model).to(dtype),
+                                    kfac_approx, N, _row_axis(model))
     return cache[key]
+
+
+def _row_axis(model):
+    """The axis whose ranks hold the model's row blocks, or None."""
+    return getattr(model, "row_axis", None)
+
+
+def _rank_features(model):
+    """The rows of the model's features this rank works on."""
+    rows = getattr(model, "rank_features", None)
+    return rows() if rows is not None else getattr(model, "X", None)
 
 
 def _owning_site(leaf_name: str, site_by_prefix, sites, strict: bool = True):
@@ -311,10 +339,10 @@ def posterior_split(model, params, exclude=DEFAULT_EXCLUDE,
 def _zero_perturbations(model, params, sites, X) -> dict:
     """eps0: a zero perturbation of each site's pre-activation. On a
     BaseGNN that is (rows of the model's features, out features of the
-    site's Linear): every layer runs on the whole graph. Other models
-    (MLP, CNN) give the shapes of the pre-activations that one forward on
-    ``X`` records."""
-    feats = getattr(model, "X", None)
+    site's Linear): every layer runs on the whole graph, or on the rank's
+    rows of it. Other models (MLP, CNN) give the shapes of the
+    pre-activations that one forward on ``X`` records."""
+    feats = _rank_features(model)
     shapes = {}
     if feats is None:
         taps = TapCollector()
@@ -390,9 +418,12 @@ def compute_kfac_factors(model, params, X, y, likelihood: str,
             raise ValueError(f"KFAC tap site {name!r} recorded no tap in "
                              f"the forward; its layer runs untapped")
 
+    row_axis = _row_axis(model)
+
     def summed(cots):
         (gs,) = torch.func.vmap(pullback)(cots)
-        return {name: _cov(gs[name], kfac_approx) for name in site_names}
+        return {name: _cov(gs[name], kfac_approx, row_axis)
+                for name in site_names}
 
     def accumulate_B(cots):
         """Per-site sum over the cotangent columns (K, M, C) of g^T g."""
@@ -420,7 +451,8 @@ def compute_kfac_factors(model, params, X, y, likelihood: str,
     static = (model.tap_sites(None)[0]["name"]
               if getattr(model, "first_tap_static", False) else None)
     A = {name: (_static_input_cov(model, N, kfac_approx, out.dtype)
-                if name == static else _input_cov(acts[name], kfac_approx, N))
+                if name == static else _input_cov(acts[name], kfac_approx, N,
+                                                  row_axis))
          for name in site_names}
 
     site_by_prefix = {tuple(s["param_path"]): s for s in sites}

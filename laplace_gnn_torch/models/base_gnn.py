@@ -16,6 +16,15 @@ and whatever a model adds (``adj_lora_A`` / ``adj_lora_B``, ``adj_W``).
 ``apply(params, x_indices)`` runs every layer on the full graph through
 ``torch.func.functional_call`` over a flat ``{name: tensor}`` dict and
 slices the requested output rows at the end.
+
+On a sharded graph (``apply(..., adj_constraint=graph_sharding(mesh))``,
+or a :meth:`BaseGNN.placed` clone) a model with a row-block route runs
+every layer on its rank's row block: ``params["adj"]`` is the rank's row
+block, the whole parameters enter through ``collectives.replicate`` once
+(so their gradients sum over the ranks), X's rows are the rank's, and the
+selected output rows are gathered whole on every rank
+(``collectives.gather_selected``). X stays whole on the model: it is
+small beside the N x N adjacency.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from torch.func import functional_call
 from ..device import resolve_device
 from ..nn.module import (Linear, TapCollector, activation_resolver,
                          dropout, make_norm)
+from ..parallel.collectives import gather_selected, replicate
+from ..parallel.mesh import rank_rows
 from ..utils.pytree import named_leaves
 
 
@@ -61,9 +72,33 @@ def _plain_attention(impl):
     return twin() if callable(twin) else impl
 
 
+def _graph_axis(constraint):
+    """The graph axis of a row placement, or None (no placement)."""
+    if constraint is None:
+        return None
+    from ..parallel.sharded import graph_axis_of
+    ax = graph_axis_of(constraint)
+    if ax is None:
+        raise ValueError(f"adj_constraint must place rows on the 'graph' "
+                         f"axis, got {constraint.spec}")
+    return ax
+
+
+def replicated_params(params: dict, ax, blocks=()) -> dict:
+    """``params`` as a sharded forward takes them: every whole leaf
+    through ``replicate`` (its gradient sums the ranks'), the leaves named
+    in ``blocks`` (row blocks already) as they are."""
+    return {k: v if k in blocks else replicate(v, ax)
+            for k, v in params.items()}
+
+
 class BaseGNN(nn.Module):
     # what the trainer's hypersteps step (JAX's ADJ_PARAM_FILTERS)
     adj_params = ("adj",)
+    #: None, or a 'graph' row placement (``parallel.graph_sharding``) under
+    #: which ``apply`` runs on the rank's row block (JAX's sharding
+    #: constraint); ``placed`` sets it on a clone
+    adj_constraint = None
 
     def __init__(self,
                  in_channels: int,
@@ -214,34 +249,105 @@ class BaseGNN(nn.Module):
         m.convs = nn.ModuleList(convs)
         return m
 
+    # --- row blocks ------------------------------------------------------
+    @property
+    def n_nodes(self) -> int:
+        return int(self.init_adj.shape[0])
+
+    @property
+    def row_axis(self):
+        """The axis whose ranks hold this model's row blocks (from its
+        ``adj_constraint``), or None: the curvature reads it."""
+        return self._row_axis_for(None)
+
+    def _row_axis_for(self, adj_constraint):
+        return _graph_axis(adj_constraint if adj_constraint is not None
+                           else self.adj_constraint)
+
+    def has_row_route(self) -> bool:
+        """True when the model runs on row blocks under a placement."""
+        return False
+
+    def row_block_adj(self, ax, taps: Optional[TapCollector] = None):
+        """The rank's aggregation operator over row blocks (models with a
+        row-block route override it)."""
+        raise NotImplementedError
+
+    def _require_row_route(self) -> None:
+        if not self.has_row_route():
+            raise ValueError(f"{type(self).__name__} has no row-block "
+                             f"route: run it unplaced")
+
+    def rank_features(self) -> torch.Tensor:
+        """The rows of X this rank works on."""
+        ax = self.row_axis
+        return self.X if ax is None else rank_rows(self.X, ax)
+
+    def placed(self, adj_constraint) -> "BaseGNN":
+        """A clone sharing every parameter and buffer whose ``apply`` runs
+        on the rank's row block under ``adj_constraint`` (a
+        ``graph_sharding``), for code that calls ``apply`` without one
+        (the curvature, the trainers). This model is left as it was."""
+        if adj_constraint is not None:
+            _graph_axis(adj_constraint)
+            self._require_row_route()
+        m = _shallow_clone(self)
+        m.adj_constraint = adj_constraint
+        # the KFAC's constant input covariance sums the rank's rows anew
+        m.__dict__.pop("_static_input_cov", None)
+        return m
+
     # --- forward ----------------------------------------------------------
     def forward(self, x_indices=None, taps: Optional[TapCollector] = None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> torch.Tensor:
-        return self._propagate(self.forward_adj(taps), x_indices, taps,
-                               generator, train)
+                train: bool = False, row_axis=None) -> torch.Tensor:
+        adj = (self.forward_adj(taps) if row_axis is None
+               else self.row_block_adj(row_axis, taps))
+        return self._propagate(adj, x_indices, taps, generator, train,
+                               row_axis)
 
-    def _propagate(self, adj, x_indices, taps, generator, train):
+    def _propagate(self, adj, x_indices, taps, generator, train,
+                   row_axis=None):
         """Every layer over ``adj`` in the JAX order: conv, ``+ res(x)``
-        (untapped, as in JAX), norm, act, dropout."""
+        (untapped, as in JAX), norm, act, dropout; then the rows
+        ``x_indices``. With a ``row_axis`` every layer runs on the rank's
+        rows (a BatchNorm's statistics and the dropout mask are those of
+        the whole graph) and the selected rows are gathered whole."""
         x = self.X.to(self.adj.dtype)
+        if row_axis is not None:           # X is whole on a dense model
+            x = rank_rows(x, row_axis)
         for i in range(self.num_layers - 1):
             h = self.convs[i](adj, x, taps=taps)
             if self.use_res:
                 h = self.res[i](x) + h
-            x = self.act(self.norms[i](h))
-            x = dropout(x, self.dropout_p, train, generator)
+            x = self.act(self.norms[i](h, row_axis=row_axis))
+            x = (dropout(x, self.dropout_p, train, generator)
+                 if row_axis is None else
+                 dropout(x, self.dropout_p, train, generator, row_axis))
         x = self.convs[-1](adj, x, taps=taps)
-        return x if x_indices is None else x[x_indices]
+        return select_rows(x, x_indices, row_axis)
 
     def apply(self, params: dict, x_indices=None,
               taps: Optional[TapCollector] = None,
               generator: Optional[torch.Generator] = None,
-              train: bool = False) -> torch.Tensor:
-        """Forward with the parameters taken from ``params``."""
+              train: bool = False, adj_constraint=None) -> torch.Tensor:
+        """Forward with the parameters taken from ``params``. Under a row
+        placement (``adj_constraint``, else the model's own) ``params["
+        adj"]`` is the rank's row block and the output rows ``x_indices``
+        come out whole on every rank (with ``x_indices=None``, the rank's
+        block)."""
+        ax = self._row_axis_for(adj_constraint)
+        if ax is not None:
+            self._require_row_route()
+            adj = params.get("adj")
+            if adj is not None and adj.shape[0] * ax.size != self.n_nodes:
+                raise ValueError(f"adj has {adj.shape[0]} rows: a row "
+                                 f"placement takes the rank's block of "
+                                 f"{self.n_nodes // ax.size}")
+            params = replicated_params(params, ax, blocks=("adj",))
         return functional_call(self, params, (x_indices,),
                                {"taps": taps, "generator": generator,
-                                "train": train})
+                                "train": train, "row_axis": ax})
 
     # --- introspection for Laplace / KFAC ---------------------------------
     # The last Linear's output is aggregated before it becomes the model
@@ -273,3 +379,13 @@ class BaseGNN(nn.Module):
 
     def last_layer_path(self, params: Optional[dict] = None) -> tuple:
         return ("convs", len(self.convs) - 1, "lin")
+
+
+def select_rows(x: torch.Tensor, x_indices, row_axis) -> torch.Tensor:
+    """``x[x_indices]``; on row blocks the selected rows gathered whole
+    on every rank (``x_indices=None``: the rank's block)."""
+    if x_indices is None:
+        return x
+    if row_axis is None:
+        return x[x_indices]
+    return gather_selected(x, x_indices, row_axis)

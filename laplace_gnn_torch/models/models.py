@@ -61,6 +61,13 @@ class GCN(BaseGNN):
             return FusedAdjOp(lambda s: norm_aggregate(adj, s))
         return normalize_adj(adj)
 
+    def has_row_route(self) -> bool:
+        return not self.fused
+
+    def row_block_adj(self, ax, taps: Optional[TapCollector] = None):
+        from ..parallel.sharded import NormalizedRowBlockAdj
+        return NormalizedRowBlockAdj(self.adj, ax)
+
     def init_conv(self, in_channels, out_channels, name, **kwargs):
         return GCNConv(in_channels, out_channels, name=name, **kwargs)
 
@@ -85,10 +92,10 @@ class GraphSAGE(BaseGNN):
 
     def forward(self, x_indices=None, taps: Optional[TapCollector] = None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, row_axis=None) -> torch.Tensor:
         """A train-mode forward given a generator draws the neighbour
         sample from it first, then the dropout masks, as JAX splits its
-        key."""
+        key. It has no row-block route (``row_axis`` is always None)."""
         adj = self.adj
         k = self.num_sampled_nodes_per_hop
         if train and generator is not None and k is not None:
@@ -151,33 +158,32 @@ class STEGCN(BaseGNN):
                            self.sign_grad)
         return normalize_adj(fill_diagonal(adj, 1.0))
 
+    def has_row_route(self) -> bool:
+        """The composed path only: ``fused=True`` keeps the square
+        adjacency, which ``core_spmm`` reads whole."""
+        return not self.fused
+
+    def row_block_adj(self, ax, taps: Optional[TapCollector] = None):
+        """The normalized STE aggregation from the rank's row block of
+        ``adj`` (``parallel.sharded.ste_row_block``)."""
+        return _ste_rows(self, self.adj, ax, self.symmetric,
+                         self.sign_grad)
+
     def init_conv(self, in_channels, out_channels, name, **kwargs):
         return GCNConv(in_channels, out_channels, name=name, **kwargs)
 
 
-def _graph_axis(constraint):
-    """The graph axis of a row placement, or None (no placement)."""
-    if constraint is None:
-        return None
-    from ..parallel.sharded import graph_axis_of
-    ax = graph_axis_of(constraint)
-    if ax is None:
-        raise ValueError(f"adj_constraint must place rows on the 'graph' "
-                         f"axis, got {constraint.spec}")
-    return ax
-
-
-def _row_block_adj(model, cols, ax):
-    """The rank's rows of the normalized STE adjacency from its column
-    block of the (symmetrized) raw one, as a row-block operator."""
-    from ..parallel.sharded import RowBlockAdj, ste_normalized_rows
+def _ste_rows(model, raw_blk, ax, symmetric, sign_grad=False):
+    """The rank's row-block operator of ``normalize_adj(fill_diagonal(
+    binarize_ste(raw), 1))`` from its row block of ``raw``, with the STE
+    mask's rows."""
+    from ..parallel.mesh import rank_rows
+    from ..parallel.sharded import ste_row_block
     mask = model.grad_adj_mask
     if mask is not None:
-        b = cols.shape[1]
-        mask = mask[:, ax.index * b:(ax.index + 1) * b]
-    return RowBlockAdj(ste_normalized_rows(
-        cols, ax, model.threshold, mask, getattr(model, "sign_grad", False)),
-        ax)
+        mask = rank_rows(mask, ax)
+    return ste_row_block(raw_blk, ax, model.threshold, mask, sign_grad,
+                         symmetric)
 
 
 class STEGraphSAGE(BaseGNN):
@@ -287,6 +293,18 @@ class GAT(BaseGNN):
             return (self.adj > 0).to(self.mask_dtype)
         return self.adj
 
+    def has_row_route(self) -> bool:
+        """When every conv takes the row-sharded attention
+        (``parallel.make_row_sharded_gat_attention``)."""
+        from ..parallel.sharded import RowShardedAttention
+        return all(isinstance(c.attention_impl, RowShardedAttention)
+                   for c in self.convs)
+
+    def row_block_adj(self, ax, taps: Optional[TapCollector] = None):
+        """The rank's row block of the mask, which the row-sharded
+        attention reads."""
+        return self.forward_adj(taps)
+
     def init_conv(self, in_channels, out_channels, name, **kwargs):
         heads = kwargs.pop("heads", 1)
         concat = kwargs.pop("concat", True)
@@ -323,8 +341,8 @@ class AttSTEGCN(BaseGNN):
                                         train_nodes)
         #: None, or a 'graph' row placement (``parallel.graph_sharding``,
         #: JAX's sharding constraint on the score matrix): each rank then
-        #: builds its rows of the score, the STE and the normalization
-        #: (``parallel.sharded``) and multiplies them
+        #: runs on its row block, building its rows of the score, the STE
+        #: and the normalization (``parallel.sharded``)
         self.adj_constraint = None
 
     def _draw(self, generator: torch.Generator) -> dict:
@@ -338,18 +356,21 @@ class AttSTEGCN(BaseGNN):
         src = self.adj_W(self.X.to(self.adj.dtype))
         return _clip01((src @ src.T) / self.scale)
 
+    def has_row_route(self) -> bool:
+        return True
+
+    def row_block_adj(self, ax, taps: Optional[TapCollector] = None):
+        """The rank's rows of the score matrix (its rows of the projection
+        against every rank's, one all-gather), then the STE-GCN row-block
+        aggregation."""
+        from ..parallel.collectives import all_gather
+        from ..parallel.mesh import rank_rows
+        src_blk = self.adj_W(rank_rows(self.X, ax).to(self.adj.dtype))
+        src_all = all_gather(src_blk, ax)
+        rows = _clip01((src_blk @ src_all.T) / self.scale)      # S[rows, :]
+        return _ste_rows(self, rows, ax, self.symmetric)
+
     def forward_adj(self, taps: Optional[TapCollector] = None):
-        ax = _graph_axis(self.adj_constraint)
-        if ax is not None:
-            from ..parallel.collectives import all_gather, shard_rows
-            src = self.adj_W(self.X.to(self.adj.dtype))
-            src_blk = shard_rows(src, ax)
-            src_all = all_gather(src_blk, ax)
-            cols = _clip01((src_all @ src_blk.T) / self.scale)  # S[:, rows]
-            if self.symmetric:
-                cols = (cols + _clip01((src_blk @ src_all.T)
-                                       / self.scale).T) / 2
-            return _row_block_adj(self, cols, ax)
         adj = self.construct_adj()
         if self.symmetric:
             adj = (adj + adj.T) / 2

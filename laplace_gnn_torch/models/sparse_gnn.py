@@ -7,6 +7,11 @@ the taps, KFAC, the Laplace flavours and the marglik see only the dense
 layers, so they work unchanged. Parameters are named as the JAX pytree
 paths (``convs.<i>.lin.weight``, GAT's ``convs.<i>.att_src``), with no
 ``adj`` entry.
+
+On a sharded graph (``parallel.HaloAggGraph`` / ``DcnAggGraph``, whose
+``row_axis`` the model reads) X is the rank's row block (the graph's
+``put``), every layer runs on the rank's rows, and the selected output
+rows come out whole on every rank.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from ..graph.container import (FastAggGraph, SparseGraph,
                                segment_sum, _leaky_relu, _torch_dtype)
 from ..nn.module import Linear, TapCollector, activation_resolver, dropout
 from ..utils.pytree import named_leaves
-from .base_gnn import BaseGNN, _as_tensor
+from .base_gnn import BaseGNN, _as_tensor, select_rows
 from .layers import GCNConv
 
 
@@ -91,7 +96,7 @@ class SparseGATConv(nn.Module):
         g = getattr(graph, "graph", graph)           # unwrap FastAggGraph
         a_src = torch.sum(h * self.att_src, dim=-1)                 # (N, H)
         a_dst = torch.sum(h * self.att_dst, dim=-1)
-        if hasattr(graph, "gat_aggregate"):          # HaloAggGraph: sharded
+        if hasattr(graph, "gat_aggregate"):          # a sharded graph
             out = graph.gat_aggregate(h, self.att_src, self.att_dst,
                                       self.negative_slope)
         elif g.format == "ell" and g.ell_cols is not None:
@@ -195,6 +200,12 @@ class SparseGCN(nn.Module):
         self._conv_specs = list(zip([in_channels] + widths[:-1], widths))
         self._conv_kwargs = dict(kwargs, dtype=dtype)
         self._device = dev
+        ax = self.row_axis
+        if ax is not None and self.X.shape[0] * ax.size != graph.n_nodes:
+            raise ValueError(f"X has {self.X.shape[0]} rows: on a graph "
+                             f"sharded over {ax.size} ranks a model takes "
+                             f"the rank's block of the features (the "
+                             f"graph's put)")
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(0)
         for attr, module in self._draw(gen).items():
@@ -214,6 +225,28 @@ class SparseGCN(nn.Module):
     features = BaseGNN.features
     tap_sites = BaseGNN.tap_sites
     last_layer_path = BaseGNN.last_layer_path
+    _require_row_route = BaseGNN._require_row_route
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.graph.n_nodes)
+
+    @property
+    def row_axis(self):
+        """The axis of a sharded graph's row blocks, or None."""
+        return getattr(self.graph, "row_axis", None)
+
+    def _row_axis_for(self, adj_constraint):
+        if adj_constraint is not None:
+            raise ValueError("a sparse model's rows follow its graph: "
+                             "build it on a sharded graph instead")
+        return self.row_axis
+
+    def has_row_route(self) -> bool:
+        return True
+
+    def rank_features(self) -> torch.Tensor:
+        return self.X
 
     def init(self, generator: Optional[torch.Generator] = None) -> dict:
         """Fresh parameters drawn from ``generator`` (seeded with 0 unless
@@ -227,19 +260,21 @@ class SparseGCN(nn.Module):
 
     def forward(self, x_indices=None, taps: Optional[TapCollector] = None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> torch.Tensor:
-        """Every layer on the whole graph in the JAX order: conv,
-        ``+ res(x)`` (untapped), norm, act, dropout; then the rows
-        ``x_indices``."""
+                train: bool = False, row_axis=None) -> torch.Tensor:
+        """Every layer on the whole graph (or the rank's rows of it) in the
+        JAX order: conv, ``+ res(x)`` (untapped), norm, act, dropout; then
+        the rows ``x_indices``."""
         x = self.X
         for i in range(self.num_layers - 1):
             h = self.convs[i](self.graph, x, taps=taps)
             if self.use_res:
                 h = self.res[i](x) + h
-            x = self.act(self.norms[i](h))
-            x = dropout(x, self.dropout_p, train, generator)
+            x = self.act(self.norms[i](h, row_axis=row_axis))
+            x = (dropout(x, self.dropout_p, train, generator)
+                 if row_axis is None else
+                 dropout(x, self.dropout_p, train, generator, row_axis))
         x = self.convs[-1](self.graph, x, taps=taps)
-        return x if x_indices is None else x[x_indices]
+        return select_rows(x, x_indices, row_axis)
 
 
 class SparseSAGE(SparseGCN):

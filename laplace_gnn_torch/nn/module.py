@@ -194,11 +194,25 @@ class _Norm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
 
-    def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
-        mu = torch.mean(x, dim=self.axis, keepdim=True)
-        var = torch.var(x, dim=self.axis, keepdim=True, correction=0)
+    def forward(self, x: torch.Tensor, row_axis=None, **_) -> torch.Tensor:
+        if row_axis is not None and self.axis == 0:
+            mu, var = _row_block_moments(x, row_axis)
+        else:
+            mu = torch.mean(x, dim=self.axis, keepdim=True)
+            var = torch.var(x, dim=self.axis, keepdim=True, correction=0)
         return (x - mu) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
+
+
+def _row_block_moments(x: torch.Tensor, ax):
+    """The mean and biased variance over the rows of every rank's block
+    (equal blocks), each rank holding its own: two sums over rows and
+    ranks (``all_reduce``: every rank uses them on its own rows)."""
+    from ..parallel.collectives import all_reduce
+    n = x.shape[0] * ax.size
+    mu = all_reduce(torch.sum(x, dim=0, keepdim=True), ax) / n
+    var = all_reduce(torch.sum((x - mu) ** 2, dim=0, keepdim=True), ax) / n
+    return mu, var
 
 
 class LayerNorm(_Norm):
@@ -227,13 +241,24 @@ def make_norm(norm: Optional[str], dim: int, name: str = "norm",
 
 
 def dropout(x: torch.Tensor, p: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            row_axis=None) -> torch.Tensor:
     """Inverted dropout; a no-op outside training or without a generator
-    (the JAX package skips it when no rng key is given)."""
+    (the JAX package skips it when no rng key is given). On a rank's row
+    block (``row_axis``) the mask is the block's rows of the mask the
+    whole graph draws from the same generator, so a sharded step drops
+    what the unsharded one does (every rank draws the whole mask: N x d
+    uniforms, small beside an N x N adjacency)."""
     if not train or p <= 0.0 or generator is None:
         return x
-    u = torch.rand(x.shape, generator=generator, device=x.device,
+    shape = tuple(x.shape)
+    if row_axis is not None:
+        shape = (x.shape[0] * row_axis.size,) + shape[1:]
+    u = torch.rand(shape, generator=generator, device=x.device,
                    dtype=x.dtype)
+    if row_axis is not None:
+        b = x.shape[0]
+        u = u[row_axis.index * b:(row_axis.index + 1) * b]
     return torch.where(u < 1.0 - p, x / (1.0 - p), torch.zeros_like(x))
 
 

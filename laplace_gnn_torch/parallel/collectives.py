@@ -15,15 +15,21 @@ collectives are old-style autograd Functions (no ``setup_context``), which
     Function, so double backward (the marglik hyperstep) works.
 
 Values are of two kinds. A *whole* value is the same on every rank of the
-axis and stands for one global value (the parameters, the features, the
-loss). A *rank* value differs per rank: a block of rows, or what a
-collective received. :func:`shard_rows` (whole -> the rank's rows) and
-:func:`gather_rows` (rows -> whole) are each other's transposes and bound
-every sharded body; :func:`replicate` carries a whole value into a body
-(its transpose sums the ranks' cotangents, :func:`sum_replicated`). Inside
-a body, :func:`all_gather` / :func:`reduce_scatter`,
-:func:`all_to_all`, :func:`ppermute` and :func:`all_reduce` move rank
-values. With these types a replicated loss gets the global gradient on
+axis and stands for one global value (the parameters, the selected output
+rows, the loss, the KFAC factors). A *rank* value differs per rank: the
+rank's block of rows (the features and every activation of a model on a
+sharded graph), or what a collective received. :func:`replicate` carries
+a whole value into rank computation (its transpose sums the ranks'
+cotangents, :func:`sum_replicated`): a model on a sharded graph passes
+each whole parameter through it once, at the entry of its ``apply``.
+:func:`sum_replicated` turns a sum of rank partials into a whole value (a
+KFAC factor, a 'dcn' sum of partial blocks that every slice then uses
+alike), and :func:`gather_rows` / :func:`gather_selected` turn rows into a
+whole value (their transposes take each rank's rows of the cotangent).
+Between rank values, :func:`all_gather` / :func:`reduce_scatter`,
+:func:`all_to_all`, :func:`ppermute` and :func:`all_reduce` move data (a
+BatchNorm's statistics are an ``all_reduce``: each rank uses them on its
+own rows). With these types a replicated loss gets the global gradient on
 every rank: no factor of the axis size appears.
 
 A body that has work independent of an exchange issues the exchange into
@@ -33,7 +39,11 @@ after the communication stream, so the exchange overlaps the work. Their
 backwards wait at once.
 
 The port never routes a CUDA tensor through a Gloo group: every call
-checks the group's backend against the tensor's device.
+checks the group's backend against the tensor's device. A ``fake`` group
+(``torch.testing._internal.distributed.fake_pg``, which moves nothing)
+is taken only where the caller asked for it (``make_mesh(...,
+allow_fake=True)``): it runs one rank alone at its real shapes, to
+measure its memory; the buffers it "receives" are zeros.
 """
 
 from __future__ import annotations
@@ -111,11 +121,19 @@ def check_backend(x: torch.Tensor, ax: Axis) -> None:
 
 # -- the raw collectives (no autograd) ----------------------------------------
 
+def _received(x: torch.Tensor, shape, ax: Axis) -> torch.Tensor:
+    """A buffer for what a collective receives: zeros on a fake group,
+    which writes nothing into it."""
+    if ax.backend == "fake":
+        return x.new_zeros(shape)
+    return x.new_empty(shape)
+
+
 def _all_gather(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """The ranks' (n, ...) blocks stacked along rows: (size * n, ...)."""
     check_backend(x, ax)
     x = x.contiguous()
-    out = x.new_empty((ax.size * x.shape[0],) + tuple(x.shape[1:]))
+    out = _received(x, (ax.size * x.shape[0],) + tuple(x.shape[1:]), ax)
     _all_gather_rows(out, x, group=ax.group)
     return out
 
@@ -129,7 +147,7 @@ def _reduce_scatter(x: torch.Tensor, ax: Axis) -> torch.Tensor:
         total = x.clone()
         dist.all_reduce(total, group=ax.group)
         return total[ax.index * n:(ax.index + 1) * n].clone()
-    out = x.new_empty((n,) + tuple(x.shape[1:]))
+    out = _received(x, (n,) + tuple(x.shape[1:]), ax)
     _reduce_scatter_rows(out, x, group=ax.group)
     return out
 
@@ -139,7 +157,7 @@ def _all_to_all(x: torch.Tensor, ax: Axis, pending=None) -> torch.Tensor:
     rank q."""
     check_backend(x, ax)
     x = x.contiguous()
-    out = torch.empty_like(x)
+    out = _received(x, x.shape, ax)
     _finish([dist.all_to_all_single(out, x, group=ax.group, async_op=True)],
             pending)
     return out
@@ -155,7 +173,7 @@ def _ppermute(x: torch.Tensor, ax: Axis, shift: int,
     if to == ax.index:
         return x.clone()
     x = x.contiguous()
-    out = torch.empty_like(x)
+    out = _received(x, x.shape, ax)
     ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(ax.group, to),
                       group=ax.group),
            dist.P2POp(dist.irecv, out, dist.get_global_rank(ax.group, frm),
@@ -164,10 +182,11 @@ def _ppermute(x: torch.Tensor, ax: Axis, shift: int,
     return out
 
 
-def _all_reduce(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, ax: Axis, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
     check_backend(x, ax)
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=ax.group)
+    dist.all_reduce(out, op=op, group=ax.group)
     return out
 
 
@@ -401,12 +420,29 @@ class _SumReplicated(torch.autograd.Function):
         return _SumReplicated.apply(x, ax), in_dims[0]
 
 
-def shard_rows(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    """This rank's block of rows of a whole value (rows divide the axis)."""
-    if x.shape[0] % ax.size:
-        raise ValueError(f"{x.shape[0]} rows do not divide over the "
-                         f"{ax.size} ranks of axis {ax.name!r}")
-    return _ShardRows.apply(x, ax)
+class _PMaxShift(torch.autograd.Function):
+    """The maximum over ranks, taken as a constant: its derivative is
+    zero. For a softmax's shift only, which cancels in the value."""
+
+    @staticmethod
+    def forward(x, ax):
+        return _all_reduce(x, ax, dist.ReduceOp.MAX)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return torch.zeros_like(t)
+
+    @staticmethod
+    def vmap(info, in_dims, x, ax):
+        return _PMaxShift.apply(x, ax), in_dims[0]
 
 
 def gather_rows(x: torch.Tensor, ax: Axis) -> torch.Tensor:
@@ -451,3 +487,44 @@ def replicate(x: torch.Tensor, ax: Axis) -> torch.Tensor:
 def sum_replicated(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """The sum over ranks of a rank value, as a whole value."""
     return _SumReplicated.apply(x, ax)
+
+
+def pmax_shift(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """JAX's ``pmax(stop_gradient(x), axis)``: the maximum over ranks as a
+    constant (a softmax's shift)."""
+    return _PMaxShift.apply(x, ax)
+
+
+def _selection_plan(idx: torch.Tensor, block: int, ax: Axis):
+    """Where each of the whole rows ``idx`` lies: (this rank's local rows
+    of ``idx``, the common padded count K, the position of each ``idx``
+    entry in the ranks' stacked (size * K) selections). ``idx`` is the
+    same on every rank."""
+    idx = idx.reshape(-1).to(torch.int64)
+    owner = torch.div(idx, block, rounding_mode="floor")
+    counts = torch.bincount(owner, minlength=ax.size)
+    k = max(1, int(counts.max()))
+    order = torch.argsort(owner, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(idx)
+    pos[order] = torch.arange(idx.numel(), device=idx.device) - starts[
+        owner[order]]
+    local = idx[owner == ax.index] - ax.index * block
+    return local, k, owner * k + pos
+
+
+def gather_selected(x_blk: torch.Tensor, idx, ax: Axis) -> torch.Tensor:
+    """The whole rows ``x[idx]`` of a value whose row blocks the ranks
+    hold: each rank takes its own rows of ``idx``, pads them to the common
+    count, and one all-gather of (K, ...) per rank, reordered, gives every
+    rank the same (len(idx), ...) value. Its transpose gives each rank the
+    cotangent of its own rows (no sum)."""
+    idx = torch.as_tensor(idx, device=x_blk.device)
+    local, k, where = _selection_plan(idx, x_blk.shape[0], ax)
+    mine = x_blk[local]
+    pad = k - mine.shape[0]
+    if pad:
+        mine = torch.cat([mine, mine.new_zeros((pad,) + tuple(
+            mine.shape[1:]))])
+    return gather_rows(mine, ax)[where].reshape(
+        tuple(idx.shape) + tuple(x_blk.shape[1:]))

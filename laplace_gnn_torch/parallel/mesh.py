@@ -3,16 +3,16 @@
 Counterpart of ``laplace_gnn_tpu/parallel/mesh.py`` on
 ``torch.distributed``: one process per device (SPMD) instead of one
 controller over many. The mesh is a ``DeviceMesh`` with the dimensions
-``('graph', 'model')``: the graph axis partitions nodes and edges, the
-model axis may split feature dimensions. A sharding is a
-:class:`NamedSharding`, the mesh with DTensor placements (``Shard(0)`` on
-the graph axis is JAX's ``P('graph', None)``).
+``('graph', 'model')`` (or the hybrid ``('dcn', 'graph', 'model')`` of
+:mod:`.distributed`): the graph axis partitions nodes and edges. A
+sharding is a :class:`NamedSharding`, the mesh with DTensor placements
+(``Shard(0)`` on the graph axis is JAX's ``P('graph', None)``).
 
-A value stays whole on every rank outside a sharded body: a placement
-says which rows each rank works on inside the body (see
-:mod:`laplace_gnn_torch.parallel.collectives`), which keeps every global
-computation (the loss, the KFAC curvature) the same program as on one
-device.
+A value placed on the graph axis is held as the rank's contiguous block
+of rows (the rows JAX's plans give the rank: ``plan["block"]`` of
+:mod:`.partition` / :mod:`.sharded`); every other axis holds it whole. So
+a graph's features, its activations and a dense adjacency's rows divide
+over the graph ranks, and what each rank holds falls with their number.
 """
 
 from __future__ import annotations
@@ -49,10 +49,34 @@ class NamedSharding:
     def device(self) -> torch.device:
         return mesh_device(self.mesh)
 
+    @property
+    def rows_on(self) -> Optional[str]:
+        """The mesh axis whose ranks split this value's rows, or None."""
+        for name, p in zip(self.mesh.mesh_dim_names, self.placements):
+            if name == "graph" and isinstance(p, Shard) and p.dim == 0:
+                return name
+        return None
+
     def put(self, x) -> torch.Tensor:
-        """The whole tensor on this rank's device, which the bodies read
-        their rows of."""
-        return torch.as_tensor(x).to(self.device)
+        """This rank's part of ``x`` on its device: its contiguous block of
+        rows for a graph-axis placement (the rows must divide over the
+        ranks), else ``x`` whole. A copy: the whole value is not kept."""
+        x = torch.as_tensor(x)
+        if self.rows_on is not None:
+            from .collectives import mesh_axis
+            x = rank_rows(x, mesh_axis(self.mesh, self.rows_on))
+        return x.to(self.device, copy=True)
+
+
+def rank_rows(x: torch.Tensor, ax) -> torch.Tensor:
+    """Rank ``ax.index``'s contiguous block of the rows of a whole ``x``
+    (a view)."""
+    n = x.shape[0]
+    if n % ax.size:
+        raise ValueError(f"{n} rows do not divide over the {ax.size} ranks "
+                         f"of axis {ax.name!r} (pad the graph first)")
+    b = n // ax.size
+    return x[ax.index * b:(ax.index + 1) * b]
 
 
 def mesh_device(mesh) -> torch.device:
@@ -64,15 +88,18 @@ def mesh_device(mesh) -> torch.device:
 
 def make_mesh(n_devices: Optional[int] = None,
               axis_names: Sequence[str] = ("graph", "model"),
-              model_parallel: int = 1, device=None):
+              model_parallel: int = 1, device=None,
+              allow_fake: bool = False):
     """Mesh over the run's ``n_devices`` processes (default: all), shaped
     (n_devices // model_parallel, model_parallel).
 
     One process per device: join the process group first
     (:func:`laplace_gnn_torch.parallel.distributed.initialize`), NCCL on
-    ``cuda`` (the default), Gloo with ``device="cpu"``. Raises ValueError
-    when ``model_parallel`` does not divide the devices, as JAX's does, or
-    when the mesh would leave out processes of the run."""
+    ``cuda`` (the default), Gloo with ``device="cpu"``; a ``fake`` group
+    (one rank alone at its real shapes, nothing moved) only with
+    ``allow_fake=True``. Raises ValueError when ``model_parallel`` does
+    not divide the devices, as JAX's does, or when the mesh would leave
+    out processes of the run."""
     dev = resolve_device(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = min(n_devices or world, world)
@@ -82,35 +109,47 @@ def make_mesh(n_devices: Optional[int] = None,
     if n != world:
         raise ValueError(f"a mesh of {n} devices in a run of {world} "
                          f"processes: the mesh spans every process")
+    check_group(dev, allow_fake)
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(dev.type, (n // model_parallel, model_parallel),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def check_group(dev: torch.device, allow_fake: bool = False) -> None:
+    """Raise unless the run's process group carries ``dev``'s tensors
+    (NCCL for ``cuda``, Gloo for the CPU, or a fake group when allowed);
+    on ``cuda``, select this process's card."""
     if not dist.is_initialized():
         raise RuntimeError("join a process group first "
                            "(laplace_gnn_torch.parallel.distributed."
                            "initialize)")
     backend = str(dist.get_backend())
-    if dev.type == "cuda" and backend != "nccl":
-        raise RuntimeError(f"a {dev.type} mesh on a {backend} group: the "
-                           f"port routes CUDA tensors through NCCL only")
-    if dev.type == "cpu" and backend != "gloo":
-        raise RuntimeError(f"a CPU mesh on a {backend} group: CPU tensors "
-                           f"go through Gloo")
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    if backend != want and not (allow_fake and backend == "fake"):
+        raise RuntimeError(f"a {dev.type} mesh on a {backend} group: "
+                           f"{dev.type} tensors go through {want} only")
     if dev.type == "cuda":
         # the card of this process, before the mesh initializes NCCL on it
         index = dev.index
         if index is None:
             index = dist.get_rank() % torch.cuda.device_count()
         torch.cuda.set_device(index)
-    from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(dev.type, (n // model_parallel, model_parallel),
-                            mesh_dim_names=tuple(axis_names))
+
+
+def _on_axis(mesh, axis: str) -> NamedSharding:
+    """Dim 0 split over ``axis``, whole over the mesh's other axes."""
+    return NamedSharding(mesh, tuple(
+        Shard(0) if name == axis else Replicate()
+        for name in mesh.mesh_dim_names))
 
 
 def graph_sharding(mesh) -> NamedSharding:
     """Rows (nodes) split over the graph axis: ``P('graph', None)``."""
-    return NamedSharding(mesh, (Shard(0), Replicate()))
+    return _on_axis(mesh, "graph")
 
 
 def replicated(mesh) -> NamedSharding:
-    return NamedSharding(mesh, (Replicate(), Replicate()))
+    return _on_axis(mesh, None)
 
 
 def shard_gnn_params(mesh, params: dict, model_axis: bool = True) -> dict:
@@ -119,7 +158,9 @@ def shard_gnn_params(mesh, params: dict, model_axis: bool = True) -> dict:
       - a 2-D weight whose first dimension divides the model axis: that
         dimension over 'model' (tensor parallel) when ``model_axis``;
       - every other leaf: replicated.
-    The names are the dotted paths of the JAX pytree."""
+    The names are the dotted paths of the JAX pytree. The 'model' axis is
+    a placement only: :meth:`NamedSharding.put` keeps such a weight whole
+    on every rank (the weights are small beside the N x N adjacency)."""
     n_model = int(mesh.size(mesh.mesh_dim_names.index("model")))
 
     def spec_for(path: str, leaf) -> NamedSharding:
@@ -128,7 +169,7 @@ def shard_gnn_params(mesh, params: dict, model_axis: bool = True) -> dict:
             return graph_sharding(mesh)
         if model_axis and leaf.ndim == 2 and "weight" in path \
                 and leaf.shape[0] % n_model == 0:
-            return NamedSharding(mesh, (Replicate(), Shard(0)))
+            return _on_axis(mesh, "model")
         return replicated(mesh)
 
     return {name: spec_for(name, leaf) for name, leaf in params.items()}

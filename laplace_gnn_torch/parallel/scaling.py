@@ -28,16 +28,12 @@ def projected_scaling(graph, d_features: int, t_compute_1chip: float,
                       bytes_per_el: int = 4,
                       ici_bw: float = H100_NVLINK_BW,
                       overlap: bool = True,
-                      t_fixed: float = 0.0,
-                      exit_gather: bool = False) -> list[dict]:
+                      t_fixed: float = 0.0) -> list[dict]:
     """Project the edges/s scaling efficiency of the halo-partitioned
     aggregation.
 
-    By default it prices the halo alone, as JAX's does: there a body's
-    output stays sharded. The port's bodies end in a gather of their
-    output rows (``parallel.sharded``); ``exit_gather=True`` prices that
-    too, (n - 1) * ceil(N / n) rows after the body, which nothing
-    overlaps.
+    It prices the halo alone, as JAX's does: a body's output stays the
+    rank's row block, in the port as in JAX (``parallel.sharded``).
 
     Per GPU and aggregation at ``n`` GPUs:
       t_comp(n) = t_fixed + (t_compute_1chip - t_fixed) / n
@@ -50,13 +46,11 @@ def projected_scaling(graph, d_features: int, t_compute_1chip: float,
       t_step(n) = max(t_comp, t_comm)   if overlap (the exchange is issued
                   before the independent local segment-sum)
                   t_comp + t_comm       otherwise
-                  + exit_rows(n) * d * bytes / ici_bw   if exit_gather
       efficiency(n) = t_compute_1chip / (n * t_step(n))
 
     ``ici_bw`` is the link between the GPUs of the 'graph' axis (NVLink by
     default). Returns one dict per n: {n, halo_rows, t_comp_us, t_comm_us,
-    t_step_us, efficiency, edges_per_s}, and with ``exit_gather`` also
-    exit_rows and t_exit_us (t_comm_us stays the halo's).
+    t_step_us, efficiency, edges_per_s}.
     """
     from .sharded import halo_widths
 
@@ -71,12 +65,6 @@ def projected_scaling(graph, d_features: int, t_compute_1chip: float,
         t_comp = t_fixed + (t_compute_1chip - t_fixed) / n
         t_comm = halo_rows * d_features * bytes_per_el / ici_bw
         t_step = max(t_comp, t_comm) if overlap else t_comp + t_comm
-        row = {}
-        if exit_gather:
-            exit_rows = (n - 1) * -(-graph.n_nodes // n)
-            t_exit = exit_rows * d_features * bytes_per_el / ici_bw
-            t_step += t_exit
-            row = {"exit_rows": int(exit_rows), "t_exit_us": t_exit * 1e6}
         eff = t_compute_1chip / (n * t_step)
         out.append({
             "n": int(n),
@@ -86,7 +74,6 @@ def projected_scaling(graph, d_features: int, t_compute_1chip: float,
             "t_step_us": t_step * 1e6,
             "efficiency": float(eff),
             "edges_per_s": float(n_edges / t_step),
-            **row,
         })
     return out
 

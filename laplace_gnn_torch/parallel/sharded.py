@@ -2,24 +2,22 @@
 
 Counterpart of ``laplace_gnn_tpu/parallel/sharded.py`` on
 ``torch.distributed``, one process per device. JAX runs each partitioned
-aggregation as a ``shard_map`` body inside one program; here each rank runs
-its body on its own rows. Every value outside a body is whole and the same
-on every rank (the features, the parameters, the loss), so a model, its
-loss and its KFAC curvature run unchanged on a sharded graph; a body takes
-its rank's rows (:func:`~laplace_gnn_torch.parallel.collectives.shard_rows`),
-exchanges what it needs through the collectives of
-:mod:`laplace_gnn_torch.parallel.collectives`, and gives its rows back
-whole (``gather_rows``). Every collective and every boundary is a Function
-with vmap, forward-mode and differentiable backward rules, so the KFAC
-pullbacks and the marglik hyperstep run through the bodies.
-
-What does not scale yet: every rank holds every whole value (the whole
-(N, N) adjacency, the features and every activation) and runs each
-row-wise layer on all N rows; only the aggregations split their work, and
-each body ends in a gather of its N x d rows (``gather_rows``), on top of
-its own exchange. So memory does not fall with the number of ranks, and no
-graph larger than one card can run yet: keeping the row blocks through the
-row-wise layers, with no exit gather, is the step that would.
+aggregation as a ``shard_map`` body whose inputs and outputs are
+``P('graph', None)`` row blocks; here each rank runs its body on its own
+block. A value placed on the graph axis is the rank's contiguous block of
+rows (:meth:`~laplace_gnn_torch.parallel.mesh.NamedSharding.put`): the
+features, every activation of a model on a sharded graph, and a dense
+adjacency's rows. Every body takes the rank's blocks and returns its
+block; it gathers only what JAX's bodies gather inside them (the features
+of the all-gather aggregates, ``a_src`` and ``h`` of the row-sharded
+attention). The row-wise layers (Linear, activation, residual Linear) run
+on the rank's rows as they are, so what a rank holds falls with the
+number of ranks. A model gathers whole values only where it needs them:
+its selected output rows (``collectives.gather_selected``), and the KFAC
+factors, sums over rows and ranks (``curvature/kfac.py``). Every
+collective and boundary is a Function with vmap, forward-mode and
+differentiable backward rules, so the KFAC pullbacks and the marglik
+hyperstep run through the bodies.
 
 Each body is split at its collectives into module functions of the rank's
 block and of what it received (:func:`halo_send`, :func:`halo_rows`,
@@ -46,10 +44,9 @@ from ..device import resolve_device
 from ..graph.container import (FastAggGraph, Segments, SparseGraph,
                                _leaky_relu, gather, segment_sum)
 from ..ops.adjacency import binarize_ste
-from .collectives import (Axis, Pending, all_gather, all_reduce,
-                          all_to_all, gather_rows, mesh_axis, ppermute,
-                          replicate, shard_rows)
-from .mesh import graph_sharding, mesh_device, shard_gnn_params
+from .collectives import (Axis, Pending, all_gather, all_to_all, mesh_axis,
+                          ppermute, reduce_scatter)
+from .mesh import graph_sharding, mesh_device, replicated, shard_gnn_params
 
 
 def _np(t) -> np.ndarray:
@@ -76,11 +73,9 @@ def sharded_aggregate(mesh, adj_block: torch.Tensor,
                       x_block: torch.Tensor) -> torch.Tensor:
     """Row-partitioned ``adj @ x``: each rank all-gathers the feature
     blocks and multiplies its (N/P, N) row block of ``adj``. Both inputs
-    and the result are whole (N, ...) tensors placed
-    ``graph_sharding(mesh)``."""
-    ax = mesh_axis(mesh)
-    x_full = all_gather(shard_rows(x_block, ax), ax)
-    return gather_rows(shard_rows(adj_block, ax) @ x_full, ax)
+    and the result are the rank's row blocks (placed
+    ``graph_sharding(mesh)``)."""
+    return adj_block @ all_gather(x_block, mesh_axis(mesh))
 
 
 def ring_rows(adj_blk: torch.Tensor, x_blk: torch.Tensor, ax: Axis,
@@ -108,57 +103,86 @@ def make_ring_dense_aggregate(mesh, n_nodes: int, device=None):
     """Dense ``adj @ x`` with the all-gather decomposed into a ring of
     ``P - 1`` hops pipelined against per-chunk products
     (:func:`ring_rows`). Returns ``(aggregate_fn, put)``:
-    ``aggregate_fn(adj, x)`` with both placed ``graph_sharding(mesh)``.
-    Differentiable: the cotangent rides the ring back."""
+    ``aggregate_fn(adj_blk, x_blk)`` with both the rank's row blocks
+    (placed ``graph_sharding(mesh)``), and the rank's rows of the product
+    out. Differentiable: the cotangent rides the ring back."""
     _device(mesh, device)
     n_parts = _n_parts(mesh)
     if n_nodes % n_parts != 0:
         raise ValueError(f"n_nodes={n_nodes} must divide n_parts={n_parts}")
     block = n_nodes // n_parts
 
-    def aggregate_fn(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        ax = mesh_axis(mesh)
-        return gather_rows(ring_rows(shard_rows(adj, ax), shard_rows(x, ax),
-                                     ax, block), ax)
+    def aggregate_fn(adj_blk: torch.Tensor,
+                     x_blk: torch.Tensor) -> torch.Tensor:
+        return ring_rows(adj_blk, x_blk, mesh_axis(mesh), block)
 
     return aggregate_fn, graph_sharding(mesh).put
 
 
 # -- the dense STE adjacency by row blocks ------------------------------------
 
-class RowBlockAdj:
-    """An (N, N) adjacency of which each rank holds its row block: ``spmm``
-    multiplies the block by the all-gathered features and gives the rows
-    back whole (consumed by ``ops.spmm.aggregate``)."""
+class NormalizedRowBlockAdj:
+    """``normalize_adj(A) = D^-1/2 A^T D^-1/2`` (D the row sums) as an
+    operator over row blocks, from the rank's row block ``a_blk`` (R, N)
+    of A. A row block holds its rows whole, so its degrees are local; the
+    rank's columns of the normalized matrix, ``d[:, None] * a_blk.T *
+    d_blk[None, :]`` (N, R), take every degree (one all-gather of N
+    values), and ``spmm`` reduce-scatters the (N, d) partial products to
+    the ranks' row blocks. Nothing of N x N size moves, each rank holds
+    N x R entries, and at one rank it computes ``normalize_adj(A) @ x``
+    to the bit.
 
-    def __init__(self, block: torch.Tensor, ax: Axis):
-        self.block = block
+    The other way, the rank's rows of A^T by one all-to-all of its N x R
+    entries, times the all-gathered features, was slower on four H100s
+    (NVLink, N = 8192: 35.4 against 33.5 ms a Kron hyperstep, 12.9
+    against 10.5 ms a train step; ``scripts/probe_row_blocks.py``)."""
+
+    def __init__(self, a_blk: torch.Tensor, ax: Axis):
+        rowsum = a_blk.sum(dim=1)
+        d_blk = torch.where(rowsum > 0,
+                            torch.rsqrt(torch.clamp(rowsum, min=1e-38)),
+                            torch.zeros_like(rowsum))
+        d = all_gather(d_blk, ax)
+        self.cols = d[:, None] * a_blk.T * d_blk[None, :]
         self.ax = ax
 
-    def spmm(self, x: torch.Tensor) -> torch.Tensor:
-        x_full = all_gather(shard_rows(x, self.ax), self.ax)
-        return gather_rows(self.block @ x_full, self.ax)
+    def spmm(self, x_blk: torch.Tensor) -> torch.Tensor:
+        return reduce_scatter(self.cols @ x_blk, self.ax)
 
 
-def ste_normalized_rows(cols: torch.Tensor, ax: Axis, threshold: float,
-                        grad_mask: Optional[torch.Tensor] = None,
-                        sign_grad: bool = False) -> torch.Tensor:
-    """This rank's rows of ``normalize_adj(fill_diag(binarize_ste(A), 1))``
-    from its column block ``cols = A[:, rows]`` (N, B): the normalization
-    takes A transposed, so a row block of the result needs a column block
-    of A. The degrees sum the ranks' partial row sums. ``grad_mask`` is
-    the STE mask's column block."""
-    n, b = cols.shape
-    a = binarize_ste(cols, threshold, grad_mask, sign_grad)
-    eye = torch.zeros((n, b), dtype=torch.bool, device=cols.device)
-    own = torch.arange(b, device=cols.device)
-    eye[ax.index * b + own, own] = True
-    a = torch.where(eye, torch.ones_like(a), a)
-    rowsum = all_reduce(a.sum(dim=1), ax)
-    d = torch.where(rowsum > 0, torch.rsqrt(torch.clamp(rowsum, min=1e-38)),
-                    torch.zeros_like(rowsum))
-    d_rows = d[ax.index * b:(ax.index + 1) * b]
-    return d_rows[:, None] * a.T * d[None, :]
+def transpose_rows(blk: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The rank's row block of A^T from its row block (R, N) of A: one
+    all-to-all of the (R, R) tiles, each transposed."""
+    r = blk.shape[0]
+    tiles = blk.reshape(r, ax.size, r).permute(1, 0, 2)  # q: A[rows, R_q]
+    got = all_to_all(tiles, ax)                          # q: A[R_q, rows]
+    return got.permute(2, 0, 1).reshape(r, ax.size * r)
+
+
+def block_diagonal(a_blk: torch.Tensor, ax: Axis,
+                   value: float) -> torch.Tensor:
+    """``fill_diagonal`` on the rank's row block: the entries (i, index *
+    R + i) set to ``value``, out of place."""
+    r = a_blk.shape[0]
+    eye = torch.zeros(a_blk.shape, dtype=torch.bool, device=a_blk.device)
+    own = torch.arange(r, device=a_blk.device)
+    eye[own, ax.index * r + own] = True
+    return torch.where(eye, torch.full_like(a_blk, value), a_blk)
+
+
+def ste_row_block(adj_blk: torch.Tensor, ax: Axis, threshold: float,
+                  grad_mask: Optional[torch.Tensor] = None,
+                  sign_grad: bool = False,
+                  symmetric: bool = False) -> NormalizedRowBlockAdj:
+    """STE-GCN's composed aggregation, ``normalize_adj(fill_diagonal(
+    binarize_ste(A), 1))``, from the rank's row block of the raw
+    adjacency, in the unsharded order; ``symmetric`` first averages the
+    block with its block of A^T (:func:`transpose_rows`). ``grad_mask``
+    is the STE mask's row block."""
+    if symmetric:
+        adj_blk = (adj_blk + transpose_rows(adj_blk, ax)) / 2
+    a = binarize_ste(adj_blk, threshold, grad_mask, sign_grad)
+    return NormalizedRowBlockAdj(block_diagonal(a, ax, 1.0), ax)
 
 
 def graph_axis_of(sharding) -> Optional[Axis]:
@@ -171,25 +195,29 @@ def graph_axis_of(sharding) -> Optional[Axis]:
 def make_sharded_train_step(model, mesh, loss_fn, lr: float = 0.01,
                             device=None):
     """A sharded SGD step over a BaseGNN's params dict. Returns ``(step,
-    shard_params)``: ``shard_params(params)`` places each leaf by
-    :func:`~laplace_gnn_torch.parallel.mesh.shard_gnn_params` and returns
+    shard_params)``: ``shard_params(params)`` places each leaf and returns
     ``(params, shardings)``; ``step(params, idx, y)`` returns ``(params,
     loss)``.
 
-    JAX leaves the partition to XLA; here nothing partitions on its own.
-    The placements record the layout, and every leaf stays whole on each
-    rank (:meth:`NamedSharding.put`), so the step of a model with no
-    sharded body (STE-GCN, fused or composed: ``core_spmm`` reads the
-    square adjacency) is the unsharded step, run on every rank. A model
-    whose ``adj_constraint`` the caller has set to a row placement
-    (AttSTEGCN, as in JAX) builds and multiplies its row blocks of the
-    normalized adjacency in the step. The gradient is the same on every
-    rank."""
+    JAX places the adjacency's rows on the graph axis and XLA partitions
+    the step along them. Here a model with a row-block route (STE-GCN and
+    GCN with ``fused=False``, AttSTEGCN, a GAT whose convs take the
+    row-sharded attention) takes the placement as an explicit argument,
+    ``model.apply(p, idx, adj_constraint=graph_sharding(mesh))``: each
+    rank holds its row block of ``adj`` (:func:`shard_gnn_params`), runs
+    every layer on its rows, and its gradient in ``adj`` is its block of
+    the whole gradient; the weights stay whole, and their gradients are the
+    same on every rank. ``fused=True`` keeps the square adjacency whole on
+    every rank, because ``core_spmm`` reads it whole: its step is the
+    unsharded step, run on every rank, and its ``adj`` placement is
+    replicated. The step never changes the model."""
     _device(mesh, device)
+    rows = model.has_row_route()
+    placement = graph_sharding(mesh) if rows else None
 
     def step(params: dict, idx, y):
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss = loss_fn(model.apply(p, idx), y)
+        loss = loss_fn(model.apply(p, idx, adj_constraint=placement), y)
         grads = torch.autograd.grad(loss, list(p.values()),
                                     allow_unused=True)
         new = {k: (v - lr * g if g is not None else v).detach()
@@ -198,6 +226,9 @@ def make_sharded_train_step(model, mesh, loss_fn, lr: float = 0.01,
 
     def shard_params(params: dict):
         shardings = shard_gnn_params(mesh, params)
+        if not rows:
+            shardings = {k: replicated(mesh) if s.rows_on else s
+                         for k, s in shardings.items()}
         return ({k: shardings[k].put(v) for k, v in params.items()},
                 shardings)
 
@@ -460,12 +491,45 @@ def halo_send(x_blk: torch.Tensor, plan: RankPlan) -> list:
             for seg, shape in plan.sends]
 
 
+class _EdgeSumFn(torch.autograd.Function):
+    """``out[dst_e] += w_e x[src_e]`` over an :class:`EdgeSet`, linear in
+    ``x``, without forming the (E, d) products (``Segments.bag_sum``: an
+    ``embedding_bag`` per row in a fixed order). Its transpose is the same
+    sum with src and dst swapped; forward mode is the map itself; a
+    vmapped batch folds into the feature axis."""
+
+    @staticmethod
+    def forward(x, edges, transposed):
+        seg, cols = ((edges.src, edges.dst.index) if transposed
+                     else (edges.dst, edges.src.index))
+        flat = x.reshape(x.shape[0], -1)
+        out = flat.new_zeros((seg.n, flat.shape[1])).index_add_(
+            0, seg.rows, seg.bag_sum(flat, cols, edges.w.to(x.dtype)))
+        return out.reshape((seg.n,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.edges, ctx.transposed = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return _EdgeSumFn.apply(g, ctx.edges, not ctx.transposed), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _edges, _transposed):
+        return _EdgeSumFn.apply(t, ctx.edges, ctx.transposed)
+
+    @staticmethod
+    def vmap(info, in_dims, x, edges, transposed):
+        xb = x.movedim(in_dims[0], -1)                  # (n, ..., B)
+        return _EdgeSumFn.apply(xb, edges, transposed), xb.ndim - 1
+
+
 def _edge_sum(x: torch.Tensor, edges: Optional[EdgeSet],
               block: int) -> torch.Tensor:
     if edges is None:
         return x.new_zeros((block,) + tuple(x.shape[1:]))
-    w = edges.w.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
-    return segment_sum(w * gather(x, edges.src), edges.dst)
+    return _EdgeSumFn.apply(x, edges, False)
 
 
 def halo_rows(x_blk: torch.Tensor, halo_flat, plan: RankPlan,
@@ -506,11 +570,10 @@ def _halo_aggregate(mesh, plan: dict, ring: bool, device):
     ax = mesh_axis(mesh)
     rp = rank_plan(plan, ax.index, device)
 
-    def aggregate_fn(x: torch.Tensor) -> torch.Tensor:
-        x_blk = shard_rows(x, ax)
+    def aggregate_fn(x_blk: torch.Tensor) -> torch.Tensor:
         pending = Pending()
         halo = exchange(halo_send(x_blk, rp), ax, ring, pending)
-        return gather_rows(halo_rows(x_blk, halo, rp, pending), ax)
+        return halo_rows(x_blk, halo, rp, pending)
 
     return aggregate_fn
 
@@ -519,7 +582,8 @@ def make_sharded_sparse_aggregate(mesh, graph, d_features: int = 0,
                                   device=None):
     """Returns ``(aggregate_fn, put)``: the edge-partitioned SpMM in which
     each rank all-gathers the feature blocks and sums its owned edges (by
-    destination) into its node block."""
+    destination) into its node block; ``aggregate_fn`` takes the rank's
+    row block and returns it."""
     dev = _device(mesh, device)
     n_parts = _n_parts(mesh)
     srcs, dsts, ws, block = partition_sparse_graph(graph, n_parts)
@@ -529,34 +593,21 @@ def make_sharded_sparse_aggregate(mesh, graph, d_features: int = 0,
     edges = _edge_set(srcs[p][:k], dsts[p][:k], ws[p][:k], graph.n_nodes,
                       block, dev)
 
-    def aggregate_fn(x: torch.Tensor) -> torch.Tensor:
-        x_full = all_gather(shard_rows(x, ax), ax)
-        return gather_rows(_edge_sum(x_full, edges, block), ax)
+    def aggregate_fn(x_blk: torch.Tensor) -> torch.Tensor:
+        return _edge_sum(all_gather(x_blk, ax), edges, block)
 
     return aggregate_fn, graph_sharding(mesh).put
 
 
 def halo_stats(n_nodes: int, n_parts: int, crossing: int) -> dict:
-    """Rows that cross the link per rank and application of a halo
-    aggregate whose halo moves ``crossing`` rows.
-
-    JAX's keys count the halo alone, against one all-gather of the
-    features (its bodies leave their rows sharded): ``halo_rows_per_
-    device``, ``allgather_rows_per_device``, ``comm_volume_ratio``. The
-    port's bodies end in a gather of their rows as well
-    (``exit_gather_rows_per_device``, as many as an all-gather), so
-    ``rows_per_device`` counts halo plus exit gather, and
-    ``port_volume_ratio`` compares it with the port's all-gather aggregate
-    (:func:`make_sharded_sparse_aggregate`: an all-gather in, a gather
-    out)."""
+    """JAX's stats of a halo aggregate whose halo moves ``crossing`` rows
+    per rank and application, against the rows one all-gather of the
+    features moves (:func:`make_sharded_sparse_aggregate`); the bodies
+    return their rows as blocks, so the halo is all that crosses."""
     allgather = n_nodes * (n_parts - 1) // n_parts
     return {"halo_rows_per_device": crossing,
             "allgather_rows_per_device": allgather,
-            "comm_volume_ratio": crossing / max(allgather, 1),
-            "exit_gather_rows_per_device": allgather,
-            "rows_per_device": crossing + allgather,
-            "port_volume_ratio": ((crossing + allgather)
-                                  / max(2 * allgather, 1))}
+            "comm_volume_ratio": crossing / max(allgather, 1)}
 
 
 def make_halo_sparse_aggregate(mesh, graph, d_features: int = 0,
@@ -566,15 +617,14 @@ def make_halo_sparse_aggregate(mesh, graph, d_features: int = 0,
     Per rank and application, (n_parts - 1) * H halo rows cross the link
     (the all_to_all's self-chunk stays local) instead of the
     N * (n_parts - 1) / n_parts rows an all-gather moves
-    (:func:`make_sharded_sparse_aggregate`); the body's exit gather moves
-    N * (n_parts - 1) / n_parts rows more (see :func:`halo_stats`). The
-    all_to_all is issued
-    before the local-edge sum. Differentiable: the cotangent takes the
-    transposed exchange, so the GGN products reuse it.
+    (:func:`make_sharded_sparse_aggregate`). The all_to_all is issued
+    before the local-edge sum. ``aggregate_fn`` takes the rank's row block
+    and returns it. Differentiable: the cotangent takes the transposed
+    exchange, so the GGN products reuse it.
 
     Returns ``(aggregate_fn, put, stats)``; ``stats``
     (:func:`halo_stats`) compares the rows that cross with the
-    all-gather's, the halo alone and with the exit gather."""
+    all-gather's."""
     dev = _device(mesh, device)
     n_parts = _n_parts(mesh)
     if n_parts == 1:
@@ -611,10 +661,10 @@ class HaloAggGraph:
     transformed h rows, the softmax over local and remote edges).
     ``schedule``: "alltoall", "ring" or "auto", which takes the ring when
     it moves less than 0.8 of the all_to_all's rows (priced from
-    :func:`halo_widths`). Every rank still holds the whole features and
-    activations, and each aggregation gathers its rows on the way out
-    (``stats``, :func:`halo_stats`): memory does not fall with the
-    ranks."""
+    :func:`halo_widths`). Build the model with the rank's row block of
+    the features (``put``): every layer then runs on the rank's rows, the
+    aggregations take and return blocks, and the model's :attr:`row_axis`
+    tells the model and its curvature that its activations are blocks."""
 
     def __init__(self, mesh, graph, d_features: int = 0,
                  schedule: str = "auto", device=None):
@@ -630,9 +680,7 @@ class HaloAggGraph:
         if schedule == "auto" and n_parts > 1:
             # rows that cross: the ring pads per shift, all_to_all pads
             # every pair to the widest but keeps its self-chunk local; the
-            # one collective wins unless the ring saves 20 % (both pay
-            # the same exit gather, which the price leaves out, as JAX's
-            # bodies have none)
+            # one collective wins unless the ring saves 20 %
             W = halo_widths(graph, n_parts)
             H = int(W.max())
             ring_rows = sum(
@@ -649,10 +697,15 @@ class HaloAggGraph:
         self.spmm, self.put, self.stats = maker(mesh, graph, d_features,
                                                 device=self.device)
 
+    @property
+    def row_axis(self) -> Axis:
+        """The axis whose ranks hold the features' row blocks."""
+        return mesh_axis(self.mesh, "graph")
+
     def gat_aggregate(self, h, att_src, att_dst, negative_slope):
         """Halo-partitioned GAT edge-softmax aggregation (built at first
-        use, see :func:`make_halo_gat_aggregate`). ``h`` is (N, heads,
-        F)."""
+        use, see :func:`make_halo_gat_aggregate`). ``h`` is the rank's
+        (B, heads, F) block."""
         if self._gat is None:
             self._gat = make_halo_gat_aggregate(
                 self.mesh, self.graph, schedule=self.schedule,
@@ -694,21 +747,14 @@ class RowShardedAttention:
         self.row_block = row_block
         self.use_flash = use_flash
 
-    def __call__(self, alpha_src, alpha_dst, adj, h, negative_slope):
+    def __call__(self, alpha_src, alpha_dst, adj_blk, h, negative_slope):
         ax = mesh_axis(self.mesh)
-        n = adj.shape[0]
-        if n % ax.size:
-            raise ValueError(f"{n} nodes do not divide over {ax.size} ranks")
-        r = n // ax.size
-        a_src = all_gather(shard_rows(alpha_src, ax), ax)       # (N, H)
-        h_full = all_gather(shard_rows(h, ax), ax)              # (N, H, F)
+        a_src = all_gather(alpha_src, ax)                       # (N, H)
+        h_full = all_gather(h, ax)                              # (N, H, F)
         # the adjacency enters only as a mask, with no gradient: its row
-        # block is read in place and never moves
-        adj_blk = adj.detach()[ax.index * r:(ax.index + 1) * r]
-        out = row_attention(a_src, shard_rows(alpha_dst, ax), adj_blk,
-                            h_full, negative_slope, self.use_flash,
-                            self.row_block)
-        return gather_rows(out, ax)
+        # block never moves
+        return row_attention(a_src, alpha_dst, adj_blk.detach(), h_full,
+                             negative_slope, self.use_flash, self.row_block)
 
     def jvp_safe(self) -> "RowShardedAttention":
         """The same sharding with the plain attention: the flash Function
@@ -726,22 +772,21 @@ def make_row_sharded_gat_attention(mesh, row_block: Optional[int] = 512,
     dense GAT structure learning (the adjacency is the learnable N x N
     object).
 
-    Each rank computes the masked softmax of the target rows of its
-    (N/P, N) row block of the adjacency. Only the per-node tensors move:
-    one all-gather of alpha_src (N, heads) and one of h (N, heads, F), and
-    the gather of the (N, heads, F) output, O(N * hidden) bytes against
-    the O(N^2) adjacency, which never moves. Each rank still holds the
-    whole adjacency (every value outside a body is whole) and reads its
-    row block in place, so its memory does not fall with P. Within
-    a rank, ``use_flash=True`` runs the flash kernels on the (R, N) row
-    shard (``flash_fwd_kernel``, and ``flash_bwd_kernel`` +
-    ``flash_bwd_reduce`` in the backward); else the plain attention by
-    blocks of ``row_block`` rows.
+    Each rank holds its (R, N) row block of the adjacency (R = N / P)
+    and computes the masked softmax of its R target rows. Only the
+    per-node tensors move: one all-gather of alpha_src (N, heads) and one
+    of h (N, heads, F), O(N * hidden) bytes against the O(N^2)
+    adjacency, which never moves. Within a rank, ``use_flash=True`` runs
+    the flash kernels on the (R, N) row shard (``flash_fwd_kernel``, and
+    ``flash_bwd_kernel`` + ``flash_bwd_reduce`` in the backward); else the
+    plain attention by blocks of ``row_block`` rows.
 
     Returns an ``attention(alpha_src, alpha_dst, adj, h, negative_slope)``
-    with whole inputs and output, a drop-in ``GATConv.attention_impl``.
-    Its ``jvp_safe()`` is the plain twin with the same sharding, which
-    ``BaseGNN.jvp_safe`` takes for the curvature."""
+    taking the rank's row blocks and returning its (R, heads, F) rows, a
+    drop-in ``GATConv.attention_impl`` of a GAT run on row blocks
+    (``model.placed(graph_sharding(mesh))``). Its ``jvp_safe()`` is the
+    plain twin with the same sharding, which ``BaseGNN.jvp_safe`` takes
+    for the curvature."""
     _device(mesh, device)
     return RowShardedAttention(mesh, row_block, use_flash)
 
@@ -816,9 +861,12 @@ def make_halo_gat_aggregate(mesh, graph, schedule: str = "alltoall",
     real-edge masks, since a zero weight silences a pad in a sum but
     would still add exp(score) to a softmax denominator.
 
-    Returns ``(gat_fn, put)`` with ``gat_fn(h, att_src, att_dst,
-    negative_slope) -> (N, heads, F)``; h is (N, heads, F), att_src /
-    att_dst (1, heads, F), both differentiable."""
+    Returns ``(gat_fn, put)`` with ``gat_fn(h_blk, att_src, att_dst,
+    negative_slope) -> (B, heads, F)``: the rank's block of the (N, heads,
+    F) h in, its rows out. att_src / att_dst (1, heads, F) are the values
+    the rank computes with: a model passes its parameters through
+    ``replicate`` once, at the entry of its ``apply``, so their gradients
+    sum over the ranks there. All differentiable."""
     dev = _device(mesh, device)
     n_parts = _n_parts(mesh)
     put = graph_sharding(mesh).put
@@ -830,13 +878,11 @@ def make_halo_gat_aggregate(mesh, graph, schedule: str = "alltoall",
     ax = mesh_axis(mesh)
     rp = rank_plan(plan, ax.index, dev)
 
-    def gat_fn(h, att_src, att_dst, negative_slope):
-        h_blk = shard_rows(h, ax)
+    def gat_fn(h_blk, att_src, att_dst, negative_slope):
         pending = Pending()
         halo = exchange(halo_send(h_blk, rp), ax, ring, pending)
         pending.wait()                 # the softmax needs every edge
-        out = halo_gat_rows(h_blk, halo(), rp, replicate(att_src, ax),
-                            replicate(att_dst, ax), negative_slope)
-        return gather_rows(out, ax)
+        return halo_gat_rows(h_blk, halo(), rp, att_src, att_dst,
+                             negative_slope)
 
     return gat_fn, put

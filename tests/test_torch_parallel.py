@@ -312,39 +312,31 @@ def test_projected_scaling_model_and_defaults():
     assert TSC.dcn_projection.__defaults__[1] == TSC.H100_NIC_BW
 
 
-@pytest.mark.parametrize("overlap", [True, False])
-def test_projected_scaling_exit_gather(overlap):
-    """The port's bodies gather their output rows: priced after the body,
-    on top of the halo-only row, which is JAX's."""
-    rng = np.random.default_rng(1)
-    n = 66
-    ei = np.stack([rng.integers(0, n, 8 * n), rng.integers(0, n, 8 * n)])
-    g = TC.sparse_from_edge_index(ei, n, normalize="sym", device="cpu")
-    kw = dict(n_chips=(2, 4), overlap=overlap, ici_bw=4.5e11)
-    halo = TSC.projected_scaling(g, 32, 1e-4, **kw)
-    both = TSC.projected_scaling(g, 32, 1e-4, exit_gather=True, **kw)
-    for a, b in zip(halo, both):
-        assert "exit_rows" not in a
-        assert b["exit_rows"] == (a["n"] - 1) * -(-n // a["n"])
-        t_exit = b["exit_rows"] * 32 * 4 / 4.5e11 * 1e6
-        np.testing.assert_allclose(b["t_exit_us"], t_exit, rtol=1e-12)
-        np.testing.assert_allclose(b["t_step_us"], a["t_step_us"] + t_exit,
-                                   rtol=1e-12)
-        assert b["t_comm_us"] == a["t_comm_us"]
-        assert b["efficiency"] < a["efficiency"]
+@pytest.mark.parametrize("schedule", ["alltoall", "ring"])
+@pytest.mark.parametrize("name,n_parts", [("random", 2), ("banded", 4),
+                                          ("skewed", 4)])
+def test_halo_stats_equal_jax(name, n_parts, schedule):
+    """The bodies return row blocks, as JAX's do: the port's stats of a
+    halo aggregate (halo_stats of its plan's crossing rows) are JAX's
+    stats dict, exactly."""
+    jg, tg = _pair(name)
+    jmake = {"alltoall": JS.make_halo_sparse_aggregate,
+             "ring": JS.make_ring_halo_sparse_aggregate}[schedule]
+    want = jmake(JMESH.make_mesh(n_parts), jg)[2]
+    if schedule == "ring":
+        plan = TS.build_ring_halo_exchange(tg, n_parts)
+        got = TS.halo_stats(tg.n_nodes, n_parts, int(sum(plan["H_s"])))
+        got["H_s"] = plan["H_s"]
+    else:
+        plan = TS.build_halo_exchange(tg, n_parts)
+        got = TS.halo_stats(tg.n_nodes, n_parts, (n_parts - 1) * plan["H"])
+    assert got == want
 
 
-@pytest.mark.parametrize("n_parts,crossing", [(1, 0), (4, 30), (3, 0)])
-def test_halo_stats_counts_exit_gather(n_parts, crossing):
-    st = TS.halo_stats(96, n_parts, crossing)
-    allgather = 96 * (n_parts - 1) // n_parts
-    assert st["halo_rows_per_device"] == crossing
-    assert st["allgather_rows_per_device"] == allgather
-    assert st["comm_volume_ratio"] == crossing / max(allgather, 1)
-    assert st["exit_gather_rows_per_device"] == allgather
-    assert st["rows_per_device"] == crossing + allgather
-    assert st["port_volume_ratio"] == (crossing + allgather) / max(
-        2 * allgather, 1)
+def test_one_part_halo_stats_equal_jax():
+    jg, tg = _pair("random")
+    want = JS.make_halo_sparse_aggregate(JMESH.make_mesh(1), jg)[2]
+    assert TS.halo_stats(tg.n_nodes, 1, 0) == want
 
 
 def _stand_in_mesh(graph, model):
@@ -395,8 +387,29 @@ def test_placements_and_specs():
     mesh = _stand_in_mesh(4, 2)
     assert TMESH.graph_sharding(mesh).placements == (Shard(0), Replicate())
     assert TMESH.graph_sharding(mesh).spec == ("graph", None)
+    assert TMESH.graph_sharding(mesh).rows_on == "graph"
     assert TMESH.replicated(mesh).placements == (Replicate(), Replicate())
     assert TMESH.replicated(mesh).spec == ()
+    assert TMESH.replicated(mesh).rows_on is None
+    hybrid = types.SimpleNamespace(mesh_dim_names=("dcn", "graph", "model"))
+    assert TMESH.graph_sharding(hybrid).placements == (
+        Replicate(), Shard(0), Replicate())
+    assert TMESH.graph_sharding(hybrid).spec == ("graph", None)
+
+
+@pytest.mark.parametrize("index", [0, 3])
+def test_rank_rows_are_the_plans_block(index):
+    """A placed value is the rank's contiguous block, plan["block"] rows;
+    rows that do not divide raise."""
+    jg, tg = _pair("skewed")
+    plan = TS.build_halo_exchange(tg, 4)
+    ax = types.SimpleNamespace(size=4, index=index, name="graph")
+    x = torch.arange(96.0)[:, None].expand(96, 3)
+    b = int(plan["block"])
+    np.testing.assert_array_equal(TMESH.rank_rows(x, ax).numpy(),
+                                  x[index * b:(index + 1) * b].numpy())
+    with pytest.raises(ValueError, match="divide"):
+        TMESH.rank_rows(torch.zeros(10, 2), ax)
 
 
 @pytest.mark.parametrize("n,mp", [(8, 3), (6, 4), (3, 2)])

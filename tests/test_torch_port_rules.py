@@ -298,6 +298,57 @@ def test_parallel_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
         make_mesh(device="cpu")
 
 
+def test_dcn_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
+    """The hybrid mesh and the DCN aggregates resolve their device before
+    they touch the mesh: without a GPU they raise unless
+    ``device="cpu"``."""
+    from laplace_gnn_torch.graph.container import sparse_from_edge_index
+    from laplace_gnn_torch.parallel import (DcnAggGraph,
+                                            make_dcn_gat_aggregate,
+                                            make_dcn_halo_aggregate,
+                                            make_hybrid_mesh)
+    X, adj = _graph()
+    g = sparse_from_edge_index(np.array(np.nonzero(adj)), 10, device="cpu")
+    for call in (lambda: make_hybrid_mesh(),
+                 lambda: make_dcn_halo_aggregate(None, g),
+                 lambda: make_dcn_gat_aggregate(None, g),
+                 lambda: DcnAggGraph(None, g)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_hybrid_mesh(device="cpu")
+
+
+def test_fake_group_only_when_asked(tmp_path):
+    """A fake process group (one rank alone, nothing moved) makes a mesh
+    only with ``allow_fake=True``; its collectives then give zeros where
+    they would receive, at the real shapes."""
+    code = (
+        "import sys, torch\n"
+        "import torch.distributed as dist\n"
+        "from torch.testing._internal.distributed.fake_pg import FakeStore\n"
+        "import laplace_gnn_torch.parallel as P\n"
+        "from laplace_gnn_torch.parallel import collectives as C\n"
+        "dist.init_process_group('fake', store=FakeStore(), rank=0,\n"
+        "                        world_size=4)\n"
+        "for make in (lambda **k: P.make_mesh(device='cpu', **k),\n"
+        "             lambda **k: P.make_hybrid_mesh(2, device='cpu', **k)):\n"
+        "    try:\n"
+        "        make()\n"
+        "        sys.exit(1)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'fake' in str(e)\n"
+        "mesh = P.make_hybrid_mesh(2, device='cpu', allow_fake=True)\n"
+        "ax = C.mesh_axis(mesh, 'graph')\n"
+        "assert ax.backend == 'fake' and ax.size == 2\n"
+        "got = C.all_gather(torch.ones(3, 2), ax)\n"
+        "assert got.shape == (6, 2) and not got.isnan().any()\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and "ok" in r.stdout, r.stdout + r.stderr
+
+
 def test_parallel_loads_no_scipy_and_gloo_takes_no_device_tensor(tmp_path):
     """A fresh process imports the sharded layer (no scipy is loaded: only
     ``rcm_order`` imports it, inside), joins a one-process Gloo group and
@@ -317,13 +368,13 @@ def test_parallel_loads_no_scipy_and_gloo_takes_no_device_tensor(tmp_path):
         "raised = 0\n"
         "for f in (C.all_gather, C.reduce_scatter, C.all_to_all,\n"
         "          C.all_reduce, C.gather_rows, C.sum_replicated,\n"
-        "          lambda t, a: C.ppermute(t, a, 1)):\n"
+        "          C.pmax_shift, lambda t, a: C.ppermute(t, a, 1)):\n"
         "    try:\n"
         "        f(x, ax)\n"
         "    except RuntimeError as e:\n"
         "        raised += 'Gloo' in str(e)\n"
         "print(raised)\n"
-        "sys.exit(0 if raised == 7 else 1)\n")
+        "sys.exit(0 if raised == 8 else 1)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr

@@ -15,7 +15,10 @@ row-sharded GAT composition rtol 1e-9 on the value and atol 1e-9 / rtol
 1e-7 on every gradient leaf (test_parallel.py:675-679); the AttSTEGCN
 hyperstep rtol 1e-10 on the value, rtol 1e-8 / atol 1e-10 on d/d adj_W
 (:720-723); the sharded train step's losses and parameters after 3 steps
-1e-10. Every rank must hold the same whole values."""
+1e-10; the composed STE-GCN hyperstep on row blocks 1e-10 on the value
+and on each rank's block of d/d adj. Placed values and body outputs are
+the rank's row blocks (their shapes are checked); the worker reports them
+gathered, and every rank must report the same whole values."""
 
 import os
 import pickle
@@ -69,6 +72,9 @@ def _models():
     g = JC.sparse_from_edge_index(ei, X.shape[0], normalize="sym")
     m = JM.SparseGCN(16, 8, 4, 2, jnp.asarray(X), g, dropout_p=0.0)
     out["sparse_gcn"] = (m, m.init(jax.random.PRNGKey(0), F64), y)
+    m = JM.SparseGCN(16, 8, 4, 2, jnp.asarray(X), g, dropout_p=0.0,
+                     norm="batch")
+    out["sparse_gcn_bn"] = (m, m.init(jax.random.PRNGKey(6), F64), y)
     for name, seed, every in (("gat", 8, None), ("gat_zero_a2a", 11, 7),
                               ("gat_zero_ring", 11, 7)):
         ei_g, w = W.gat_graph(seed, p=0.25 if every else 0.2,
@@ -91,6 +97,14 @@ def _models():
     m = JM.STEGCN(16, 8, 3, 2, jnp.asarray(X), jnp.asarray(adj),
                   dropout_p=0.0)
     out["step"] = (m, m.init(jax.random.PRNGKey(0), F64), y)
+    X, adj, y = W.ste_data()
+    m = JM.STEGCN(16, 8, 3, 2, jnp.asarray(X), jnp.asarray(adj),
+                  dropout_p=0.0)
+    out["ste"] = (m, m.init(jax.random.PRNGKey(7), F64), y)
+    m = JM.STEGCN(16, 8, 3, 2, jnp.asarray(X), jnp.asarray(adj),
+                  dropout_p=0.0, symmetric=True, train_masked_update=True,
+                  train_nodes=jnp.arange(W.STE_MASKED))
+    out["ste_sym"] = (m, m.init(jax.random.PRNGKey(8), F64), y)
     return out
 
 
@@ -134,11 +148,45 @@ def _equal(a, b):
     return a == b
 
 
+def _replicated(result: dict, name: str):
+    """What a check reports the same on every rank (its whole values)."""
+    if name == "ste_hyperstep":        # each rank's own block of d/d adj
+        return {k: {kk: vv for kk, vv in v.items() if kk != "adj_grad"}
+                for k, v in result.items()}
+    return result
+
+
 def test_every_rank_holds_the_same_values(world):
     _, ranks = world
     for r in range(1, WORLD):
         for name in W.CHECKS:
-            assert _equal(ranks[r][name], ranks[0][name]), (r, name)
+            assert _equal(_replicated(ranks[r][name], name),
+                          _replicated(ranks[0][name], name)), (r, name)
+
+
+def test_placed_values_and_outputs_are_blocks(world):
+    """Each rank holds its block of every placed value and of every body
+    output: R = N / 4 rows."""
+    _, ranks = world
+    for r in range(WORLD):
+        agg = ranks[r]["aggregates"]["shapes"]
+        for name in ("dense", "ring_dense"):
+            assert agg[name] == [(8, 32), (8, 8), (8, 8), (8, 32), (8, 8)]
+        for name in ("sparse_allgather", "sparse_alltoall", "sparse_ring"):
+            assert agg[name] == [(W.N_AGG // WORLD, W.D_AGG)] * 3
+        assert agg["sparse_vmap"] == [(3, W.N_AGG // WORLD, W.D_AGG)]
+        sm = ranks[r]["sparse_models"]["shapes"]
+        assert sm == {"X": (16, 16), "block_out": (16, 4)}
+        gat = ranks[r]["row_sharded_gat"]
+        for key in ("plain", "flash"):
+            assert gat[f"{key}_shapes"] == {"adj": (32, 128),
+                                            "block_out": (32, 4)}
+        ste = ranks[r]["ste_hyperstep"]
+        assert ste["sharded"]["adj_shape"] == (32, 128)
+        assert ste["unsharded"]["adj_shape"] == (128, 128)
+        step = ranks[r]["train_step"]
+        assert step["adj_shape fused=False"] == (8, 32)
+        assert step["adj_shape fused=True"] == (32, 32)
 
 
 def _close(a, b, tol=1e-12, rtol=None):
@@ -183,16 +231,8 @@ def test_sparse_aggregates(world, name):
     _close(out[f"sparse_{name}"][0], val)
     _close(out[f"sparse_{name}"][1], gx)
     if stats:
-        # JAX's keys (the halo alone) equal; the port's bodies also gather
-        # their rows on the way out, which its own keys count
-        got = out[f"stats_{name}"]
-        assert {k: got[k] for k in stats[0]} == stats[0]
-        exit_rows = W.N_AGG * (WORLD - 1) // WORLD
-        assert got["exit_gather_rows_per_device"] == exit_rows
-        assert got["rows_per_device"] == \
-            stats[0]["halo_rows_per_device"] + exit_rows
-        assert got["port_volume_ratio"] == got["rows_per_device"] / (
-            2 * exit_rows)
+        # the bodies return blocks, as JAX's do: the stats are JAX's
+        assert out[f"stats_{name}"] == stats[0]
 
 
 def test_halo_vmap_jvp_and_bits(world):
@@ -272,6 +312,34 @@ def test_halo_sparse_gcn(world):
         _close(v, g[k])
     _close_marglik(out["gcn_marglik"], _jax_marglik(m, params, idx, y, n),
                    1e-10, 1e-10, 1e-10)
+
+
+def test_halo_sparse_gcn_batchnorm(world):
+    """BatchNorm's statistics summed over the ranks' blocks: the forward
+    and the gradients equal JAX's unsharded SparseGCN(norm="batch")."""
+    models, ranks = world
+    out = ranks[0]["sparse_models"]
+    m, params, y = models["sparse_gcn_bn"]
+    from laplace_gnn_tpu.curvature.losses import cross_entropy_sum
+    n = 64
+    idx = jnp.arange(n)
+    _close(out["bn_forward"], jax.jit(m.apply)(_j(params), idx))
+    g = jax.jit(jax.grad(lambda p: cross_entropy_sum(
+        m.apply(p, idx), jnp.asarray(y)) / n))(_j(params))
+    g = _flat(_np_tree(g))
+    assert set(out["bn_grad"]) == set(g)
+    for k, v in out["bn_grad"].items():
+        _close(v, g[k])
+
+
+def test_sharded_dropout_masks_are_the_unsharded_rows(world):
+    """A rank's dropout mask is its rows of the mask the whole graph draws
+    from the same generator: the sharded train-mode forward equals the
+    one-part one (up to the halo's order of sums), and dropout changed
+    it."""
+    out = world[1][0]["sparse_models"]["dropout"]
+    _close(out["sharded"], out["whole"])
+    assert np.abs(out["whole"] - out["off"]).max() > 1e-2
 
 
 @pytest.mark.parametrize("name", ["gat", "gat_zero_a2a", "gat_zero_ring"])
@@ -355,7 +423,58 @@ def test_sharded_train_step(world, fused):
     for k, v in got_params.items():
         _close(v, want[k], tol=1e-10)
     specs = {k: tuple(s.spec) for k, s in _flat_shardings(shardings).items()}
-    assert out["specs"] == specs
+    if fused:      # core_spmm reads the square adjacency: kept whole
+        specs["adj"] = ()
+    assert out[f"specs fused={fused}"] == specs
+
+
+def test_composed_ste_hyperstep_on_row_blocks(world):
+    """The composed STE-GCN Kron hyperstep at P = 4: JAX's -log marglik,
+    each rank's block of JAX's d/d adj at 1e-10, and no tensor that its
+    autograd graph keeps larger than ceil(N / P) x N (the unsharded
+    hyperstep keeps N x N ones)."""
+    from laplace_gnn_tpu.training.marglik_gnn import make_neg_marglik_fn
+    models, ranks = world
+    m, params, y = models["ste"]
+    n = 128
+    fn = make_neg_marglik_fn(m, "classification", "kron", "all", N=n)
+    val, g = jax.jit(jax.value_and_grad(fn))(_j(params), jnp.arange(n),
+                                             jnp.asarray(y))
+    g_adj = np.asarray(g["adj"])
+    assert float(np.abs(g_adj).max()) > 0
+    r = -(-n // WORLD)
+    for rank in range(WORLD):
+        out = ranks[rank]["ste_hyperstep"]
+        np.testing.assert_allclose(out["sharded"]["neg_marglik"],
+                                   float(val), rtol=1e-10)
+        np.testing.assert_allclose(out["sharded"]["adj_grad"],
+                                   g_adj[rank * r:(rank + 1) * r],
+                                   atol=1e-10, rtol=1e-10)
+        assert out["sharded"]["max_saved"] <= r * n
+        assert out["unsharded"]["max_saved"] >= n * n
+
+
+def test_symmetric_masked_ste_hyperstep_on_row_blocks(world):
+    """STE-GCN with ``symmetric=True`` (each rank's rows of A^T by one
+    all-to-all) and ``train_masked_update`` (the mask's row block): JAX's
+    -log marglik and each rank's block of d/d adj at 1e-10."""
+    from laplace_gnn_tpu.training.marglik_gnn import make_neg_marglik_fn
+    models, ranks = world
+    m, params, y = models["ste_sym"]
+    n = 128
+    fn = make_neg_marglik_fn(m, "classification", "kron", "all", N=n)
+    val, g = jax.jit(jax.value_and_grad(fn))(_j(params), jnp.arange(n),
+                                             jnp.asarray(y))
+    g_adj = np.asarray(g["adj"])
+    assert float(np.abs(g_adj).max()) > 0
+    r = n // WORLD
+    for rank in range(WORLD):
+        out = ranks[rank]["ste_hyperstep"]["symmetric_masked"]
+        np.testing.assert_allclose(out["neg_marglik"], float(val),
+                                   rtol=1e-10)
+        np.testing.assert_allclose(out["adj_grad"],
+                                   g_adj[rank * r:(rank + 1) * r],
+                                   atol=1e-10, rtol=1e-10)
 
 
 def _flat_shardings(tree, prefix=""):

@@ -8,6 +8,11 @@ through ``laplace_gnn_torch.parallel`` in float64 and writes its results
 (numpy arrays) to DIR/rank<RANK>.pkl. It imports no JAX: the test process
 computes the JAX side from the same data (the ``*_data`` functions here,
 numpy only) and compares.
+
+Placed values and body outputs are the rank's row blocks: each check
+records their shapes (``shapes``) and reports them gathered whole
+(``_whole``), so every rank writes the same values, except where a check
+reports the rank's own block (``ste_hyperstep``).
 """
 
 from __future__ import annotations
@@ -107,10 +112,51 @@ def step_data(n=32, d=16, c=3, seed=21):
 STEP_LR, STEP_N = 0.1, 3
 
 
+def ste_data(n=128, d=16, c=3, seed=22):
+    """The composed STE-GCN hyperstep's graph, features and labels."""
+    rng = np.random.default_rng(seed)
+    adj = (rng.random((n, n)) < 0.08).astype(np.float64)
+    adj = np.minimum(adj + adj.T, 1.0)
+    return rng.standard_normal((n, d)), adj, rng.integers(0, c, n)
+
+
+STE_MASKED = 40        # train nodes of the masked STE gradient
+
+
+def max_saved_numel(root) -> int:
+    """The most elements of a tensor that the autograd graph of ``root``
+    keeps for its backward (every node's saved tensors)."""
+    import torch
+    seen, stack, best = set(), [root.grad_fn], 0
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for name in dir(node):
+            if not name.startswith("_saved_"):
+                continue
+            try:
+                v = getattr(node, name)
+            except Exception:
+                continue
+            for t in (v if isinstance(v, (tuple, list)) else (v,)):
+                if isinstance(t, torch.Tensor):
+                    best = max(best, t.numel())
+        stack.extend(f for f, _ in node.next_functions)
+    return best
+
+
 # -- the checks (port side) ---------------------------------------------------
 
 def _np(t):
     return t.detach().cpu().numpy()
+
+
+def _whole(t, mesh):
+    """The whole value of the ranks' row blocks ``t`` (for the report)."""
+    from laplace_gnn_torch.parallel.collectives import gather_rows, mesh_axis
+    return _np(gather_rows(t.detach(), mesh_axis(mesh)))
 
 
 def check_aggregates(ctx):
@@ -118,7 +164,7 @@ def check_aggregates(ctx):
     from laplace_gnn_torch.graph.container import sparse_from_edge_index
     from laplace_gnn_torch.parallel import sharded as S
     mesh, dev = ctx["mesh"], "cpu"
-    out = {}
+    out, shapes = {}, {}
     # dense: the all-gather and the ring formulations, value and gradient
     rng = np.random.default_rng(0)
     A = torch.as_tensor(rng.standard_normal((32, 32)))
@@ -128,8 +174,11 @@ def check_aggregates(ctx):
                     ("ring_dense", agg)):
         a_, v_ = put(A).requires_grad_(True), put(x).requires_grad_(True)
         val = f(a_, v_)
+        # each rank's share of the sum: the collectives' transposes sum
+        # the ranks' cotangents
         ga, gv = torch.autograd.grad(torch.sum(torch.sin(val)), (a_, v_))
-        out[name] = (_np(val), _np(ga), _np(gv))
+        shapes[name] = [tuple(t.shape) for t in (a_, v_, val, ga, gv)]
+        out[name] = tuple(_whole(t, mesh) for t in (val, ga, gv))
     # sparse: all-gather, both halo schedules
     ei, _ = agg_graph(1)
     g = sparse_from_edge_index(ei, N_AGG, normalize="sym",
@@ -143,24 +192,30 @@ def check_aggregates(ctx):
         v = put(xs).requires_grad_(True)
         val = f(v)
         (gx,) = torch.autograd.grad(torch.sum(val ** 2), v)
-        out[f"sparse_{name}"] = (_np(val), _np(gx))
+        shapes[f"sparse_{name}"] = [tuple(t.shape) for t in (v, val, gx)]
+        out[f"sparse_{name}"] = (_whole(val, mesh), _whole(gx, mesh))
         if stats:
             out[f"stats_{name}"] = {k: v for k, v in stats[0].items()}
     # vmap and jvp through the halo exchange
-    f = S.make_halo_sparse_aggregate(mesh, g, D_AGG, device=dev)[0]
+    f, put, _ = S.make_halo_sparse_aggregate(mesh, g, D_AGG, device=dev)
     xb = torch.as_tensor(np.random.default_rng(3).standard_normal(
         (3, N_AGG, D_AGG)))
-    out["sparse_vmap"] = _np(torch.func.vmap(f)(xb))
-    out["sparse_jvp"] = _np(torch.func.jvp(f, (xs,), (xb[0],))[1])
+    xb_blk = torch.stack([put(b) for b in xb])
+    xs_blk = put(xs)
+    vm = torch.func.vmap(f)(xb_blk)
+    shapes["sparse_vmap"] = [tuple(vm.shape)]
+    out["sparse_vmap"] = np.stack([_whole(b, mesh) for b in vm])
+    out["sparse_jvp"] = _whole(torch.func.jvp(f, (xs_blk,),
+                                              (xb_blk[0],))[1], mesh)
     # two calls, the same bits
-    out["same_bits"] = bool(torch.equal(f(xs), f(xs)))
+    out["same_bits"] = bool(torch.equal(f(xs_blk), f(xs_blk)))
     # the auto schedule on a banded graph, and a bogus one
     gb = sparse_from_edge_index(banded(), 128, normalize="sym",
                                 dtype=torch.float64, device=dev)
     hg = S.HaloAggGraph(mesh, gb, device=dev)
     out["auto_schedule"] = hg.schedule
-    out["auto_value"] = _np(hg.spmm(hg.put(torch.as_tensor(
-        features(5, 128, 8)))))
+    out["auto_value"] = _whole(hg.spmm(hg.put(torch.as_tensor(
+        features(5, 128, 8)))), mesh)
     try:
         S.HaloAggGraph(mesh, gb, schedule="bogus", device=dev)
         out["bogus"] = None
@@ -176,7 +231,8 @@ def check_aggregates(ctx):
                                 add_self_loops=False, dtype=torch.float64,
                                 device=dev)
     hg2 = S.HaloAggGraph(mesh, g2, device=dev)
-    out["padded"] = (_np(hg2.spmm(hg2.put(torch.as_tensor(X2)))), node_map)
+    out["padded"] = (_whole(hg2.spmm(hg2.put(torch.as_tensor(X2))), mesh),
+                     node_map)
     # a one-part graph axis: the local path
     ei6, _ = agg_graph(6, 32, 0.2)
     g6 = sparse_from_edge_index(ei6, 32, normalize="sym",
@@ -190,11 +246,14 @@ def check_aggregates(ctx):
                                    stats["comm_volume_ratio"])
     hg6 = S.HaloAggGraph(one, g6, device=dev)
     out["one_part_auto"] = _np(hg6.spmm(hg6.put(x6)))
+    out["shapes"] = shapes
     return out
 
 
-def _marglik(model, params, idx, y, n, names=None, **kw):
-    """(-log marglik, its gradient w.r.t. ``names``) of the port."""
+def _marglik(model, params, idx, y, n, names=None, mesh=None, **kw):
+    """(-log marglik, its gradient w.r.t. ``names``) of the port; with a
+    ``mesh``, ``adj`` is the rank's row block and its gradient is
+    reported whole."""
     import torch
     from laplace_gnn_torch.training.marglik_gnn import make_neg_marglik_fn
     fn = make_neg_marglik_fn(model, "classification", "kron", "all", N=n,
@@ -205,8 +264,10 @@ def _marglik(model, params, idx, y, n, names=None, **kw):
     grads = torch.autograd.grad(val, [p[k] for k in names],
                                 allow_unused=True)
     # a GAT's adjacency enters only as a mask: its gradient is zero
+    grads = [g if g is not None else torch.zeros_like(p[k])
+             for k, g in zip(names, grads)]
     return float(val.detach()), {
-        k: _np(g) if g is not None else np.zeros(tuple(p[k].shape))
+        k: _whole(g, mesh) if (k == "adj" and mesh is not None) else _np(g)
         for k, g in zip(names, grads)}
 
 
@@ -229,6 +290,28 @@ def check_sparse_models(ctx):
     idx = torch.arange(n)
     yt = torch.as_tensor(y)
     out["gcn_forward"] = _np(m.apply(params, idx))
+    out["shapes"] = {"X": tuple(m.X.shape),
+                     "block_out": tuple(m.apply(params).shape)}
+    # BatchNorm over the ranks' blocks, and a train-mode forward whose
+    # dropout masks are the rows of the unsharded forward's
+    mb = SparseGCN(16, 8, 4, 2, hg.put(torch.as_tensor(X)), hg,
+                   dropout_p=0.0, norm="batch", device=dev, dtype=f64)
+    pb = params_from_numpy(ctx["inputs"]["sparse_gcn_bn"], device=dev)
+    pp = {k: v.clone().requires_grad_(True) for k, v in pb.items()}
+    fb = mb.apply(pp, idx)
+    out["bn_forward"] = _np(fb)
+    loss = cross_entropy_sum(fb, yt) / n
+    out["bn_grad"] = {k: _np(gk) for k, gk in
+                      zip(pp, torch.autograd.grad(loss, list(pp.values())))}
+    one = HaloAggGraph(ctx["mesh_one"], g, device=dev)
+    drop = {}
+    for name, graph in (("sharded", hg), ("whole", one)):
+        md = SparseGCN(16, 8, 4, 2, graph.put(torch.as_tensor(X)), graph,
+                       dropout_p=0.5, device=dev, dtype=f64)
+        drop[name] = md.apply(params, idx, train=True,
+                              generator=torch.Generator().manual_seed(5))
+    out["dropout"] = {k: _np(v) for k, v in drop.items()}
+    out["dropout"]["off"] = _np(m.apply(params, idx))
     p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
     loss = cross_entropy_sum(m.apply(p, idx), yt) / n
     out["gcn_grad"] = {k: _np(gk) for k, gk in
@@ -265,28 +348,41 @@ def check_sparse_models(ctx):
     return out
 
 
+def _placed(params, mesh):
+    """``params`` with ``adj`` as the rank's row block."""
+    from laplace_gnn_torch.parallel import graph_sharding
+    return {k: graph_sharding(mesh).put(v) if k == "adj" else v
+            for k, v in params.items()}
+
+
 def check_row_sharded_gat(ctx):
     import torch
     from laplace_gnn_torch.models import GAT
-    from laplace_gnn_torch.parallel import make_row_sharded_gat_attention
+    from laplace_gnn_torch.parallel import (graph_sharding,
+                                            make_row_sharded_gat_attention)
     from laplace_gnn_torch.utils.pytree import params_from_numpy
     mesh, dev, f64 = ctx["mesh"], "cpu", torch.float64
     X, adj, y = dense_gat_data()
     n = X.shape[0]
-    params = params_from_numpy(ctx["inputs"]["dense_gat"], device=dev)
+    params = _placed(params_from_numpy(ctx["inputs"]["dense_gat"],
+                                       device=dev), mesh)
     out = {}
     for flash in (False, True):
         impl = make_row_sharded_gat_attention(mesh, row_block=8,
                                               use_flash=flash, device=dev)
         m = GAT(8, 8, 4, 2, X, adj, heads=2, concat=True, dropout_p=0.0,
-                attention_impl=impl, device=dev, dtype=f64)
+                attention_impl=impl, device=dev,
+                dtype=f64).placed(graph_sharding(mesh))
         key = "flash" if flash else "plain"
         out[f"{key}_forward"] = _np(m.apply(params, torch.arange(n)))
         out[f"{key}_marglik"] = _marglik(m, params, torch.arange(n),
                                          torch.as_tensor(y), n,
-                                         names=list(params), column_chunk=2)
+                                         names=list(params), mesh=mesh,
+                                         column_chunk=2)
         out[f"{key}_twin_is_plain"] = (
             m.jvp_safe().convs[0].attention_impl.use_flash is False)
+        out[f"{key}_shapes"] = {"adj": tuple(params["adj"].shape),
+                                "block_out": tuple(m.apply(params).shape)}
     return out
 
 
@@ -299,11 +395,55 @@ def check_attstegcn(ctx):
     X, adj, y = att_data()
     n = X.shape[0]
     m = AttSTEGCN(8, 8, 4, 2, X, adj, dropout_p=0.0, device=dev, dtype=f64)
-    params = params_from_numpy(ctx["inputs"]["att"], device=dev)
+    params = _placed(params_from_numpy(ctx["inputs"]["att"], device=dev),
+                     ctx["mesh"])
     m.adj_constraint = graph_sharding(ctx["mesh"])
     return {"marglik": _marglik(m, params, torch.arange(n),
                                 torch.as_tensor(y), n,
                                 names=["adj_W.weight"])}
+
+
+def check_ste_hyperstep(ctx):
+    """The composed STE-GCN Kron hyperstep on row blocks: its -log
+    marglik, this rank's block of d/d adj, and the largest tensor its
+    autograd graph keeps (the unsharded hyperstep's beside it)."""
+    import torch
+    from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.parallel import graph_sharding
+    from laplace_gnn_torch.utils.pytree import params_from_numpy
+    from laplace_gnn_torch.training.marglik_gnn import make_neg_marglik_fn
+    mesh, dev, f64 = ctx["mesh"], "cpu", torch.float64
+    X, adj, y = ste_data()
+    n = X.shape[0]
+    m = STEGCN(16, 8, 3, 2, X, adj, dropout_p=0.0, device=dev, dtype=f64)
+    whole = params_from_numpy(ctx["inputs"]["ste"], device=dev)
+    out = {}
+    for name, model, params in (
+            ("sharded", m.placed(graph_sharding(mesh)),
+             _placed(whole, mesh)),
+            ("unsharded", m, whole)):
+        fn = make_neg_marglik_fn(model, "classification", "kron", "all",
+                                 N=n)
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        val = fn(p, torch.arange(n), torch.as_tensor(y))
+        saved = max_saved_numel(val)
+        (g,) = torch.autograd.grad(val, [p["adj"]])
+        out[name] = {"neg_marglik": float(val.detach()), "adj_grad": _np(g),
+                     "max_saved": saved, "adj_shape": tuple(p["adj"].shape)}
+    # symmetric (the block's rows of A^T by one all-to-all) with the STE
+    # gradient mask of train_masked_update (its row block)
+    ms = STEGCN(16, 8, 3, 2, X, adj, dropout_p=0.0, symmetric=True,
+                train_masked_update=True, train_nodes=np.arange(STE_MASKED),
+                device=dev, dtype=f64).placed(graph_sharding(mesh))
+    fn = make_neg_marglik_fn(ms, "classification", "kron", "all", N=n)
+    p = {k: v.clone().requires_grad_(True) for k, v in _placed(
+        params_from_numpy(ctx["inputs"]["ste_sym"], device=dev),
+        mesh).items()}
+    val = fn(p, torch.arange(n), torch.as_tensor(y))
+    (g,) = torch.autograd.grad(val, [p["adj"]])
+    out["symmetric_masked"] = {"neg_marglik": float(val.detach()),
+                               "adj_grad": _np(g)}
+    return out
 
 
 def check_train_step(ctx):
@@ -325,19 +465,24 @@ def check_train_step(ctx):
             lr=STEP_LR, device=dev)
         params, shardings = shard(params_from_numpy(ctx["inputs"]["step"],
                                                     device=dev))
+        adj_shape = tuple(params["adj"].shape)
         losses = []
         for _ in range(STEP_N):
             params, loss = step(params, idx, yt)
             losses.append(float(loss))
-        out[f"fused={fused}"] = (losses, {k: _np(v)
-                                          for k, v in params.items()})
-        out["specs"] = {k: s.spec for k, s in shardings.items()}
+        out[f"fused={fused}"] = (losses, {
+            k: (_whole(v, ctx["mesh"]) if k == "adj" and not fused
+                else _np(v)) for k, v in params.items()})
+        out[f"specs fused={fused}"] = {k: s.spec
+                                       for k, s in shardings.items()}
+        out[f"adj_shape fused={fused}"] = adj_shape
     return out
 
 
 CHECKS = {"aggregates": check_aggregates, "sparse_models": check_sparse_models,
           "row_sharded_gat": check_row_sharded_gat,
-          "attstegcn": check_attstegcn, "train_step": check_train_step}
+          "attstegcn": check_attstegcn, "train_step": check_train_step,
+          "ste_hyperstep": check_ste_hyperstep}
 
 
 def main(rank: int, world: int, init: str, out_dir: str) -> None:
