@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only flash      # build + phase 4, kernel work
     python3 chip_smoke.py --only sparse     # phase 18 alone, no build
     python3 chip_smoke.py --only parallel   # build + phases 19 and 20
+    python3 chip_smoke.py --only examples   # build + phase 21
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
@@ -245,7 +246,21 @@ Phases, each fatal:
      arxiv-shaped graph (with the features each rank holds); (b) the DCN
      bodies at (dcn, graph) = (2, 2) rank by rank on the card against the
      unsharded SpMM and GAT edge softmax (1e-5), with the halo and
-     dcn_psum rows. No kernel is on these paths.
+     dcn_psum rows. No kernel is on these paths;
+ 21. the examples (``examples/torch/``), the port's user entry points, as
+     a user runs them: 01, 06, 03, 07, 08, 12, 09, 02, 13, 04 and 10 (one
+     process, a one-rank NCCL group), each through ``main(["--device",
+     "cuda"])`` in this process, with its wall seconds and every kernel's
+     launches (counts set to 0 just before and read just after), its
+     output in ``chiprun_out/examples/``, the markers the JAX examples'
+     tests assert and the example's own checks (01's wider std in the gap
+     and marglik not falling in tuning, finite -log marglik traces,
+     predictive rows summing to 1 within 1e-5); the flash pair must launch
+     in example 13, and is then held against its plain versions at every
+     shape that example launched it with (``flash_check``). Examples 05
+     (scikit-learn) and 11 (matplotlib) need packages this machine lacks:
+     the phase prints that they were not run, and why; the CPU tests run
+     them.
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -255,7 +270,8 @@ core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2, and
 ``--only flash`` phases 1 (``flash_attention.cu`` alone) and 4, and
 ``--only sparse`` phase 18 alone (it builds no kernel), ``--only
 parallel`` phases 1 (``core_spmm.cu`` and ``flash_attention.cu``), 19
-and 20. Exits
+and 20, ``--only examples`` phases 1 (``flash_attention.cu``) and 21.
+Exits
 non-zero, with no result, when there is no CUDA device or the package is
 not beside it.
 Per-shape measurements also go to ``chiprun_out/chip_smoke.json``, and
@@ -4498,6 +4514,135 @@ def phase_memory_dcn(torch, np, card):
 
 
 
+# phase 21: the examples (examples/torch/) as a user runs them, in-process
+EXAMPLES_DIR = os.path.join(ROOT, "examples", "torch")
+# in the order of the slice; each with the markers the JAX examples' tests
+# assert (tests/test_examples.py)
+EXAMPLES_ON_CARD = (
+    ("01_laplace_quickstart", ("marglik after tuning", "should be larger")),
+    ("06_regression", ("regression example OK",)),
+    ("03_calibration", ("Laplace probit",)),
+    ("07_bayesopt", ("bayesopt example OK",)),
+    ("08_reward_modeling", ("reward modeling example OK",)),
+    ("12_dict_input_llm_head", ("dict-input predictive sums to 1: OK",)),
+    ("09_gp_calibration", ("gp calibration example OK",)),
+    ("02_graph_structure_learning", ("learned graph",
+                                     "Bayes test metrics")),
+    ("13_flash_attention_gat", ("flash GAT marglik training",
+                                "predictive rows")),
+    ("04_sparse_scale", ("30 steps, final loss",)),
+    ("10_multihost_launch", ("[single process]", "neg_marglik=")))
+# not run here, and why (the CPU tests run them)
+EXAMPLES_OFF_CARD = {
+    "05_distributed_marglik": "needs scikit-learn (graph.moons_dataset), "
+                              "which this machine lacks",
+    "11_learned_graph_evolution": "needs matplotlib (graph/plots.py), "
+                                  "which this machine lacks"}
+
+
+def _example_checks(np, name, out) -> list:
+    """The example's own checks on what its ``main`` returned."""
+    bad = []
+    if name == "01_laplace_quickstart":
+        if out["f_var_shape"] != (200, 1, 1):
+            bad.append(f"f_var shape {out['f_var_shape']}")
+        if not out["std_gap"] > out["std_data"]:
+            bad.append("std in the gap not larger")
+        if not out["marglik_after"] >= out["marglik_before"]:
+            bad.append("marglik fell in tuning")
+    if name in ("02_graph_structure_learning", "13_flash_attention_gat"):
+        if not np.all(np.isfinite(out["neg_margliks"])):
+            bad.append("neg marglik trace not finite")
+    if name == "12_dict_input_llm_head":
+        if not np.allclose(out["probs"].sum(-1), 1.0, atol=1e-5):
+            bad.append("predictive rows do not sum to 1")
+    if name == "13_flash_attention_gat":
+        if not np.allclose(out["row_sums"], 1.0, atol=1e-5):
+            bad.append("predictive rows do not sum to 1")
+    if name == "10_multihost_launch":
+        if not all(np.isfinite(out)):
+            bad.append(f"scalars {out}")
+    return bad
+
+
+def phase_examples(torch, np, fa, fs, mm, card, out_dir):
+    """Phase 21: each example of EXAMPLES_ON_CARD through its ``main(
+    ["--device", "cuda"])`` (``runpy``), with every kernel's count set to
+    0 just before and read just after; its output goes to
+    ``chiprun_out/examples/<name>.txt``, its markers and own checks must
+    hold. The flash pair must launch in example 13, and is then held
+    against its plain versions at every shape that example launched."""
+    import io
+    import runpy
+    counted = {"core_spmm": fs.core, "flash_fwd": fa.flash_fwd,
+               "flash_bwd": fa.flash_bwd, "matmul": mm.matmul}
+    ex_dir = os.path.join(out_dir, "examples")
+    os.makedirs(ex_dir, exist_ok=True)
+    for name, why in EXAMPLES_OFF_CARD.items():
+        print(f"example {name}: not run on the card, {why}", flush=True)
+
+    # the forward's inputs at each shape the examples launch it with
+    seen = {}
+    fwd_call = fa.FlashForwardKernel.__call__
+
+    def recorded(self, a_src, a_dst, adj, h, negative_slope=0.2,
+                 attn_dtype=None):
+        if h.is_cuda:
+            key = (tuple(adj.shape), tuple(h.shape), str(adj.dtype),
+                   str(attn_dtype))
+            seen.setdefault(key, tuple(t.detach().clone() for t in
+                                       (a_src, a_dst, adj, h))
+                            + (attn_dtype,))
+        return fwd_call(self, a_src, a_dst, adj, h, negative_slope,
+                        attn_dtype)
+
+    rows = {}
+    for name, markers in EXAMPLES_ON_CARD:
+        main = runpy.run_path(os.path.join(EXAMPLES_DIR, name + ".py"))[
+            "main"]
+        buf = io.StringIO()
+        for k in counted.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), mock.patch.object(
+                fa.FlashForwardKernel, "__call__", recorded):
+            out = main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counted.items()}
+        text = buf.getvalue()
+        with open(os.path.join(ex_dir, name + ".txt"), "w") as f:
+            f.write(text)
+        bad = [f"marker {m!r} not printed" for m in markers
+               if m not in text] + _example_checks(np, name, out)
+        if bad:
+            raise AssertionError(f"example {name}: {bad}")
+        rows[name] = {"seconds": secs, "launches": launches}
+        print(f"example {name}: {secs:.3f} s, launches {launches}  "
+              f"[{card}]", flush=True)
+    ex13 = rows["13_flash_attention_gat"]["launches"]
+    if not (ex13["flash_fwd"] > 0 and ex13["flash_bwd"] > 0):
+        raise AssertionError(f"example 13 launched no flash kernel: {ex13}")
+    if not seen:
+        raise AssertionError("no flash launch was recorded")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    checks = []
+    for (adj_shape, h_shape, *_), (a_src, a_dst, adj, h, attn) in \
+            seen.items():
+        gout = torch.randn((adj_shape[0],) + h_shape[1:], generator=gen,
+                           device="cuda", dtype=h.dtype)
+        *_, errs, failures = flash_check(torch, fa, a_src, a_dst, adj, h,
+                                         gout, attn, f"example 13 {h_shape}")
+        if failures:
+            raise AssertionError(failures)
+        checks.append({"adj": adj_shape, "h": h_shape, "errors": errs})
+        print(f"example 13 flash shapes adj {adj_shape} h {h_shape}: "
+              f"max abs err {max(errs.values()):.3g}, two calls the same "
+              f"bits", flush=True)
+    return {"examples": rows, "not_run": EXAMPLES_OFF_CARD,
+            "flash_checks": checks}
+
+
 def build_kernels(cuda_build, out_dir, names=None):
     """Phase 1: build the named sources (default all), one nvcc each, all at
     once; each ptxas report goes to ``build_<source>.log``."""
@@ -4520,7 +4665,7 @@ def build_kernels(cuda_build, out_dir, names=None):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["matmul", "core_spmm", "flash",
-                                           "sparse", "parallel"],
+                                           "sparse", "parallel", "examples"],
                         help="build and run this kernel's phase alone; "
                              "prints no ok line")
     args = parser.parse_args(argv)
@@ -4595,6 +4740,19 @@ def main(argv=None) -> int:
                        "memory_dcn": memory}, f, indent=1, default=str)
         print(card, flush=True)
         print(json.dumps({"partial": ["parallel"]}), flush=True)
+        return 0
+    if args.only == "examples":
+        build_kernels(cuda_build, out_dir, ["flash_attention"])
+        t0 = time.perf_counter()
+        examples = phase_examples(torch, np, fa, fs, mm, card, out_dir)
+        print(f"phase 21 phase_examples: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        with open(os.path.join(out_dir, "chip_smoke_examples.json"),
+                  "w") as f:
+            json.dump({"card": card, "kind": kind, "examples": examples},
+                      f, indent=1, default=str)
+        print(card, flush=True)
+        print(json.dumps({"partial": ["examples"]}), flush=True)
         return 0
     if args.only == "sparse":
         sparse_small = phase_sparse_small(torch, np)
@@ -4674,6 +4832,9 @@ def main(argv=None) -> int:
                      peaks)
     torch.cuda.empty_cache()
     memory = phase("20", phase_memory_dcn, torch, np, card)
+    torch.cuda.empty_cache()
+    examples = phase("21", phase_examples, torch, np, fa, fs, mm, card,
+                     out_dir)
 
     main_row = rows[0]                  # d = 64, forward: the widest call
     kernels = [{
@@ -4699,6 +4860,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "redesigned": "PR 7",
             "launches": gat_run["run_launches"][kern.name],
             "sharded_launches": parallel["launches"][kern.name],
+            "example_launches": examples["examples"][
+                "13_flash_attention_gat"]["launches"][kern.name],
             "ms_r4096": parallel["gat_p4"]["timing"][kern.name]["ms"],
             "max_abs_err": flash_err[kern.name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4741,7 +4904,7 @@ def main(argv=None) -> int:
                    "core_spmm_launched": launched,
                    "sparse": sparse, "sparse_small": sparse_small,
                    "parallel": parallel, "memory_dcn": memory,
-                   "phase_seconds": seconds,
+                   "examples": examples, "phase_seconds": seconds,
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

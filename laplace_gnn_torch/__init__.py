@@ -12,5 +12,16 @@ forward and backward of ``ops/pallas_attention.py`` behind
 """
 
 from .device import resolve_device
+from .laplace import (DiagLaplace, DiagLLLaplace, DiagSubnetLaplace,
+                      FullLaplace, FullLLLaplace, FullSubnetLaplace,
+                      FunctionalLaplace, FunctionalLLLaplace, Kron,
+                      KronDecomposed, KronLaplace, KronLLLaplace, Laplace,
+                      LowRankLaplace, SubnetLaplace, marglik_training)
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "DiagLaplace", "DiagLLLaplace",
+           "DiagSubnetLaplace", "FullLaplace", "FullLLLaplace",
+           "FullSubnetLaplace", "FunctionalLaplace", "FunctionalLLLaplace",
+           "Kron", "KronDecomposed", "KronLaplace", "KronLLLaplace",
+           "Laplace", "LowRankLaplace", "SubnetLaplace", "marglik_training"]

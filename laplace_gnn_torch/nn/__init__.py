@@ -1,8 +1,9 @@
-from .module import (CNN, MLP, BatchNorm, Conv2d, DictInputModel, Identity,
-                     LayerNorm, Linear, TapCollector, activation_resolver,
-                     dropout, get_subtree, make_norm, set_subtree)
+from .module import (ACTIVATIONS, CNN, MLP, BatchNorm, Conv2d,
+                     DictInputModel, Identity, LayerNorm, Linear,
+                     TapCollector, activation_resolver, dropout, get_subtree,
+                     make_norm, set_subtree)
 
-__all__ = ["CNN", "MLP", "BatchNorm", "Conv2d", "DictInputModel",
-           "Identity", "LayerNorm", "Linear", "TapCollector",
-           "activation_resolver", "dropout", "get_subtree", "make_norm",
-           "set_subtree"]
+__all__ = ["ACTIVATIONS", "CNN", "MLP", "BatchNorm", "Conv2d",
+           "DictInputModel", "Identity", "LayerNorm", "Linear",
+           "TapCollector", "activation_resolver", "dropout", "get_subtree",
+           "make_norm", "set_subtree"]

@@ -2,6 +2,7 @@
 package, and its entry points never fall back to the CPU unasked."""
 
 import ast
+import importlib
 import pathlib
 import subprocess
 import sys
@@ -21,8 +22,13 @@ def _package_files():
                   if "_build" not in p.relative_to(pkg).parts)
 
 
+def _example_files():
+    """The port's user entry points, ``examples/torch/*.py``."""
+    return sorted((REPO / "examples" / "torch").glob("*.py"))
+
+
 def _port_files():
-    return _package_files() + [REPO / "chip_smoke.py"]
+    return _package_files() + [REPO / "chip_smoke.py"] + _example_files()
 
 
 def _imported_roots(path):
@@ -41,7 +47,8 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
-@pytest.mark.parametrize("path", _package_files(), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", _package_files() + _example_files(),
+                         ids=lambda p: p.name)
 def test_no_sklearn_or_yaml_at_module_level(path):
     """The card has neither scikit-learn nor (maybe) PyYAML: the port reads
     a config or makes two moons only inside the function that needs it."""
@@ -104,6 +111,74 @@ def test_no_plotting_or_sklearn_module_loaded_by_the_package():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _jax_surface():
+    """(port package, the public names of the JAX package's ``__init__``
+    there, JAX's ``__version__`` or None) for every JAX ``__init__.py``:
+    the names it imports from its own modules and the public functions
+    and classes it defines."""
+    out = []
+    for init in sorted((REPO / "laplace_gnn_tpu").rglob("__init__.py")):
+        tree = ast.parse(init.read_text(), filename=str(init))
+        names, version = [], None
+        for node in tree.body:
+            if isinstance(node, ast.ImportFrom) and node.level >= 1:
+                names += [a.asname or a.name for a in node.names]
+            elif (isinstance(node, (ast.FunctionDef, ast.ClassDef))
+                  and not node.name.startswith("_")):
+                names.append(node.name)
+            elif isinstance(node, ast.Assign) and any(
+                    isinstance(t, ast.Name) and t.id == "__version__"
+                    for t in node.targets):
+                version = ast.literal_eval(node.value)
+        rel = init.parent.relative_to(REPO / "laplace_gnn_tpu").parts
+        out.append((".".join(("laplace_gnn_torch",) + rel), names, version))
+    return out
+
+
+@pytest.mark.parametrize("module,names,version", _jax_surface(),
+                         ids=[m for m, _, _ in _jax_surface()])
+def test_public_surface_matches_jax_init(module, names, version):
+    """Every name a JAX ``__init__`` exports imports from the port's
+    counterpart; an ``__all__`` there lists every one of them and nothing
+    the package lacks; ``__version__`` is JAX's."""
+    assert names or module.endswith("native"), module
+    mod = importlib.import_module(module)
+    missing = [n for n in names if not hasattr(mod, n)]
+    assert not missing, f"{module} lacks {missing}"
+    if hasattr(mod, "__all__"):
+        assert not set(names) - set(mod.__all__), module
+        assert all(hasattr(mod, n) for n in mod.__all__), module
+    if version is not None:
+        assert mod.__version__ == version
+
+
+def test_top_level_import_in_fresh_interpreter():
+    """The first line of the library examples works in a fresh process and
+    loads no JAX, Triton, scipy, matplotlib or scikit-learn module."""
+    banned = FORBIDDEN + ("triton", "scipy", "matplotlib", "sklearn")
+    code = (
+        "import sys\n"
+        "from laplace_gnn_torch import Laplace, KronLaplace, "
+        "marglik_training\n"
+        "import laplace_gnn_torch\n"
+        "assert laplace_gnn_torch.__version__ == '0.1.0'\n"
+        "assert Laplace.__module__ == 'laplace_gnn_torch.laplace.dispatch'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        f"       {banned!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_every_jax_example_has_a_port():
+    """``examples/torch/`` holds one counterpart per JAX example, under the
+    same file name."""
+    jax_names = sorted(p.name for p in (REPO / "examples").glob("*.py"))
+    assert jax_names and jax_names == [p.name for p in _example_files()]
 
 
 @pytest.fixture
