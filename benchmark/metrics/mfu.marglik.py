@@ -1,0 +1,14 @@
+"""Model operations of a whole run (``benchlib.counts.stegcn_run_flops``:
+every train step, tracking pass, -log marglik evaluation and hyperstep;
+eigensolves not counted) over ``run_s`` of the untraced window times the
+published dense bf16 peak. Moves ``run_s``."""
+
+from benchlib import peaks
+
+
+def read(view):
+    flops = view.counters.get("model_flops_per_unit")
+    run_s = view.e2e.get("run_s")
+    if not flops or not run_s:
+        return None
+    return 100.0 * flops / (run_s * peaks.BF16_FLOPS)
