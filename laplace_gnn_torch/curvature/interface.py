@@ -9,7 +9,8 @@ to the last layer, and ``subnetwork_indices`` may select entries of its
 flat vector (subnetwork Laplace): then Jacobians, gradients, the diagonal
 and the Hessian are over those entries only. On a model whose last
 Linear's output is the model output (``last_layer_closed_form``), the
-last-layer Jacobians are the closed form ``[I, I (x) phi]``.
+last-layer Jacobians are the closed form ``[I, I (x) phi]``. Both are
+the span ``laplace.jacobians`` (``profiling.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..nn.module import _prefix
+from ..profiling import annotate
 from ..utils.pytree import (DEFAULT_EXCLUDE, merge_split, named_leaves,
                             tree_size, tree_vector)
 from .kfac import _fold_seed, compute_kfac_factors, posterior_split
@@ -121,6 +123,7 @@ class CurvatureBackend:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         return M if chunk_size is None else min(chunk_size, M)
 
+    @annotate("laplace.jacobians")
     def jacobians(self, X, chunk_size: Optional[int] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
         """(Js (M, C, P), f (M, C)) w.r.t. the flat posterior vector.
@@ -135,6 +138,7 @@ class CurvatureBackend:
         return torch.cat([self._subnet(rows(m0, min(m0 + chunk, M)))
                           for m0 in range(0, M, chunk)]), out
 
+    @annotate("laplace.jacobians")
     def last_layer_jacobians(self, X) -> tuple[torch.Tensor, torch.Tensor]:
         """(Js (M, C, P_ll), f (M, C)) of the last layer in closed form from
         its input features phi: f = phi W^T + b, so d f_c / d b = e_c and

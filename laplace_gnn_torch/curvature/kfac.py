@@ -52,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..laplace.kron import Kron
 from ..nn.module import TapCollector, get_subtree, set_subtree
+from ..profiling import annotate
 from ..utils.pytree import (DEFAULT_EXCLUDE, merge_split, named_leaves,
                             posterior_mask, split_by_mask, tree_size)
 from .losses import get_loss_fn, loss_hessian_sqrt, sample_labels
@@ -359,6 +360,7 @@ def _zero_perturbations(model, params, sites, X) -> dict:
     return out
 
 
+@annotate("kfac")
 def compute_kfac_factors(model, params, X, y, likelihood: str,
                          fisher_type: str = "type-2", mc_samples: int = 1,
                          kfac_approx: str = "expand",
@@ -384,7 +386,13 @@ def compute_kfac_factors(model, params, X, y, likelihood: str,
 
     ``mixed_diag=True``: posterior parameters outside every Linear tap
     site get diagonal blocks (:func:`_mixed_diag_blocks`) in their slots
-    instead of raising."""
+    instead of raising.
+
+    The span ``kfac`` holds ``kfac.forward`` (the forward and its
+    ``torch.func.vjp``), ``kfac.pullback`` (the loss-Hessian columns and
+    the vmapped pullbacks), ``kfac.covariances`` (the B sums of each
+    block of columns, the A factors and the blocks) and, with
+    ``mixed_diag``, ``kfac.diag_blocks``."""
     if fisher_type not in FISHER_TYPES:
         raise ValueError(f"fisher_type must be one of {FISHER_TYPES}")
     if kfac_approx not in KFAC_APPROX:
@@ -409,8 +417,9 @@ def compute_kfac_factors(model, params, X, y, likelihood: str,
         acts = {name: a for name, a, _ in taps.records if name in site_names}
         return out, acts
 
-    eps0 = _zero_perturbations(model, params, sites, X)
-    out, pullback, acts = torch.func.vjp(f_of_eps, eps0, has_aux=True)
+    with annotate("kfac.forward"):
+        eps0 = _zero_perturbations(model, params, sites, X)
+        out, pullback, acts = torch.func.vjp(f_of_eps, eps0, has_aux=True)
     for name in site_names:
         # JAX raises KeyError here: a residual Linear (res=True) is a
         # listed site that its forward applies without a tap
@@ -421,9 +430,11 @@ def compute_kfac_factors(model, params, X, y, likelihood: str,
     row_axis = _row_axis(model)
 
     def summed(cots):
-        (gs,) = torch.func.vmap(pullback)(cots)
-        return {name: _cov(gs[name], kfac_approx, row_axis)
-                for name in site_names}
+        with annotate("kfac.pullback"):
+            (gs,) = torch.func.vmap(pullback)(cots)
+        with annotate("kfac.covariances"):
+            return {name: _cov(gs[name], kfac_approx, row_axis)
+                    for name in site_names}
 
     def accumulate_B(cots):
         """Per-site sum over the cotangent columns (K, M, C) of g^T g."""
@@ -444,35 +455,38 @@ def compute_kfac_factors(model, params, X, y, likelihood: str,
     elif fisher_type == "type-2-fork":
         B = accumulate_B(_fork_cotangents(likelihood, out))
     else:
-        R = _middle_sqrt(fisher_type, likelihood, out, y, lossfunc, seed,
-                         mc_samples, sketch_size)
+        with annotate("kfac.pullback"):
+            R = _middle_sqrt(fisher_type, likelihood, out, y, lossfunc, seed,
+                             mc_samples, sketch_size)
         B = accumulate_B(R.movedim(-1, 0))
 
-    static = (model.tap_sites(None)[0]["name"]
-              if getattr(model, "first_tap_static", False) else None)
-    A = {name: (_static_input_cov(model, N, kfac_approx, out.dtype)
-                if name == static else _input_cov(acts[name], kfac_approx, N,
-                                                  row_axis))
-         for name in site_names}
+    with annotate("kfac.covariances"):
+        static = (model.tap_sites(None)[0]["name"]
+                  if getattr(model, "first_tap_static", False) else None)
+        A = {name: (_static_input_cov(model, N, kfac_approx, out.dtype)
+                    if name == static else _input_cov(acts[name], kfac_approx,
+                                                      N, row_axis))
+             for name in site_names}
 
-    site_by_prefix = {tuple(s["param_path"]): s for s in sites}
-    kfacs, uncovered, slots = [], [], []
-    for leaf_name, leaf in named_leaves(w):
-        site = _owning_site(leaf_name, site_by_prefix, sites,
-                            strict=not mixed_diag)
-        if site is None:                     # diagonal block
-            uncovered.append((leaf_name, leaf))
-            slots.append(len(kfacs))
-            kfacs.append(None)
-            continue
-        name = site["name"]
-        kfacs.append([B[name]] if leaf.dim() == 1 else [B[name], A[name]])
+        site_by_prefix = {tuple(s["param_path"]): s for s in sites}
+        kfacs, uncovered, slots = [], [], []
+        for leaf_name, leaf in named_leaves(w):
+            site = _owning_site(leaf_name, site_by_prefix, sites,
+                                strict=not mixed_diag)
+            if site is None:                     # diagonal block
+                uncovered.append((leaf_name, leaf))
+                slots.append(len(kfacs))
+                kfacs.append(None)
+                continue
+            name = site["name"]
+            kfacs.append([B[name]] if leaf.dim() == 1 else [B[name], A[name]])
     if uncovered:
-        diags = _mixed_diag_blocks(
-            model, w, frozen, X, y, out, uncovered, fisher_type, likelihood,
-            mc_samples, seed, lossfunc, sketch_size=sketch_size,
-            diag_probes=diag_probes, probe_batch=probe_batch,
-            differentiate=differentiate)
+        with annotate("kfac.diag_blocks"):
+            diags = _mixed_diag_blocks(
+                model, w, frozen, X, y, out, uncovered, fisher_type,
+                likelihood, mc_samples, seed, lossfunc,
+                sketch_size=sketch_size, diag_probes=diag_probes,
+                probe_batch=probe_batch, differentiate=differentiate)
         for slot, (leaf_name, _) in zip(slots, uncovered):
             kfacs[slot] = [diags[leaf_name]]
     kron = Kron(kfacs)

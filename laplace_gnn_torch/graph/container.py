@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from .. import native
 from ..device import resolve_device
+from ..profiling import annotate, count, tracing
 
 
 def _torch_dtype(name) -> Optional[torch.dtype]:
@@ -298,11 +299,17 @@ class SparseGraph:
         return self.rem_src is not None and self.rem_src.shape[0] > 0
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
-        """``out[i] = sum_{e: dst_e = i} w_e x[src_e]`` for (N, d) ``x``."""
-        agg = _torch_dtype(self.agg_dtype)
-        if agg is not None and x.dtype != agg:
-            return self._aggregate(x.to(agg)).to(x.dtype)
-        return self._aggregate(x)
+        """``out[i] = sum_{e: dst_e = i} w_e x[src_e]`` for (N, d) ``x``.
+        The span ``spmm``; counts ``spmm.calls`` and ``spmm.edge_columns``
+        (stored edges times the columns of ``x``: the work done)."""
+        if tracing():
+            count("spmm.calls")
+            count("spmm.edge_columns", self.n_edges * x.shape[1])
+        with annotate("spmm"):
+            agg = _torch_dtype(self.agg_dtype)
+            if agg is not None and x.dtype != agg:
+                return self._aggregate(x.to(agg)).to(x.dtype)
+            return self._aggregate(x)
 
     def _aggregate(self, x: torch.Tensor) -> torch.Tensor:
         if self.format == "ell" and self.ell_cols is not None:

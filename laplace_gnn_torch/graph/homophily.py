@@ -10,6 +10,7 @@ from collections import defaultdict
 
 import numpy as np
 
+from ..profiling import annotate
 from .data import edge_index_to_adj
 
 
@@ -19,8 +20,10 @@ def _no_diag(adj) -> np.ndarray:
     return adj
 
 
+@annotate("eval.homophily")
 def global_homophily(adj, labels) -> float:
-    """Fraction of edges connecting same-label nodes."""
+    """Fraction of edges connecting same-label nodes (the span
+    ``eval.homophily``)."""
     adj = _no_diag(adj)
     labels = np.asarray(labels)
     rows, cols = np.nonzero(adj)

@@ -15,6 +15,12 @@ unless one is passed), where JAX splits a key.
 The prior precision is tuned by the marginal likelihood (Adam on its log,
 optax's ``adam`` step for step) or by a grid search on a validation
 loader; ``state_dict`` / ``load_state_dict`` carry a fitted posterior.
+
+Spans (``profiling.py``): ``laplace.fit``, ``laplace.log_marglik``,
+``laplace.tune_prior`` (its steps: ``laplace.log_marglik``,
+``laplace.tune_prior.grad`` and ``laplace.tune_prior.adam``; counted as
+``laplace.tune_prior.steps``) and ``laplace.predictive`` (its parts:
+``laplace.jacobians``, ``laplace.variance``, ``laplace.samples``).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from ..curvature.interface import CurvatureBackend, GGNBackend
 from ..ops.linalg import normal_samples
+from ..profiling import annotate, count
 from ..utils.data import dataset_size
 from ..utils.metrics import fix_prior_prec_structure, mse_loss, nll_loss
 from ..utils.pytree import DEFAULT_EXCLUDE, merge_split, named_leaves
@@ -198,6 +205,7 @@ class BaseLaplace:
                     n_samples=n_samples)
 
     # -- prior-precision tuning --------------------------------------------
+    @annotate("laplace.tune_prior")
     def optimize_prior_precision(self,
                                  pred_type: str = PredType.GLM.value,
                                  method: str = TuningMethod.MARGLIK.value,
@@ -224,17 +232,22 @@ class BaseLaplace:
         if method == TuningMethod.MARGLIK.value:
             init = torch.atleast_1d(self._scalar(init_prior_prec))
             if init.shape[0] == 1:
+                count("host_sync")
                 init = fix_prior_prec_structure(
                     float(init[0]), prior_structure, self.n_layers,
                     self.n_params, self._dtype, self._device)
             log_pp = torch.log(init).requires_grad_(True)
             opt = torch.optim.Adam([log_pp], lr=lr)
+            count("laplace.tune_prior.steps", n_steps)
             for _ in range(n_steps):
                 with torch.enable_grad():
-                    neg = -self._pure_log_marglik(torch.exp(log_pp),
-                                                  self.sigma_noise)
-                    (log_pp.grad,) = torch.autograd.grad(neg, log_pp)
-                opt.step()
+                    with annotate("laplace.log_marglik"):
+                        neg = -self._pure_log_marglik(torch.exp(log_pp),
+                                                      self.sigma_noise)
+                    with annotate("laplace.tune_prior.grad"):
+                        (log_pp.grad,) = torch.autograd.grad(neg, log_pp)
+                with annotate("laplace.tune_prior.adam"):
+                    opt.step()
             self.prior_precision = torch.exp(log_pp.detach())
         elif method == TuningMethod.GRIDSEARCH.value:
             if val_loader is None:
@@ -299,6 +312,7 @@ class BaseLaplace:
                         n_samples=n_samples, fitting=True)
             if isinstance(pred, tuple):
                 pred = pred[0]
+            count("host_sync", 1 + isinstance(y, torch.Tensor))
             outs.append(pred.detach().cpu().numpy())
             targets.append(y.detach().cpu().numpy()
                            if isinstance(y, torch.Tensor) else np.asarray(y))
@@ -324,6 +338,7 @@ class ParametricLaplace(BaseLaplace):
     def _curv_closure(self, X, y, N: int, batch_idx: int = 0):
         raise NotImplementedError
 
+    @annotate("laplace.fit")
     def fit(self, train_loader, override: bool = True) -> None:
         if override:
             self._init_H()
@@ -372,6 +387,7 @@ class ParametricLaplace(BaseLaplace):
                 + self.log_det_posterior_precision / 2
                 - self.square_norm(value) / 2)
 
+    @annotate("laplace.log_marglik")
     def log_marginal_likelihood(self, prior_precision=None, sigma_noise=None):
         """loglik - 0.5 * (log_det_ratio + scatter)."""
         if prior_precision is not None:
@@ -400,8 +416,9 @@ class ParametricLaplace(BaseLaplace):
 
     def _glm_predictive_distribution(self, X, joint: bool = False):
         Js, f_mu = self.backend._jacs(X)
-        f_var = (self.functional_covariance(Js) if joint
-                 else self.functional_variance(Js))
+        with annotate("laplace.variance"):
+            f_var = (self.functional_covariance(Js) if joint
+                     else self.functional_variance(Js))
         return f_mu, f_var
 
     def _unflatten(self, s: torch.Tensor) -> dict:
@@ -413,6 +430,7 @@ class ParametricLaplace(BaseLaplace):
         return w
 
     @torch.no_grad()
+    @annotate("laplace.samples")
     def _nn_predictive_samples(self, X, n_samples: int = 100,
                                generator: Optional[torch.Generator] = None,
                                likelihood: Optional[str] = None,
@@ -431,6 +449,7 @@ class ParametricLaplace(BaseLaplace):
             fs = torch.softmax(fs, dim=-1)
         return fs
 
+    @annotate("laplace.predictive")
     def __call__(self, x, pred_type: str = PredType.GLM.value,
                  joint: bool = False,
                  link_approx: str = LinkApprox.PROBIT.value,
@@ -476,6 +495,7 @@ class ParametricLaplace(BaseLaplace):
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         raise NotImplementedError
 
+    @annotate("laplace.predictive")
     def predictive_samples(self, x, pred_type: str = PredType.GLM.value,
                            n_samples: int = 100,
                            diagonal_output: bool = False,

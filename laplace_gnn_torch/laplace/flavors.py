@@ -1,6 +1,7 @@
 """Parametric Laplace flavours (counterpart of
 ``laplace_gnn_tpu/laplace/flavors.py``): full, Kronecker-factored,
-low-rank and diagonal posterior precision.
+low-rank and diagonal posterior precision. Each ``fit`` is the span
+``laplace.fit`` (``profiling.py``), around the base class's.
 
 Each flavour's ``sample`` draws its standard normals through
 ``ops/linalg.py::_standard_normals``, which a test replaces to feed both
@@ -15,6 +16,7 @@ import torch
 from ..curvature.operators import GGNOperator
 from ..curvature.spectrum import lanczos_eigh
 from ..ops import linalg
+from ..profiling import annotate
 from ..utils.data import dataset_size
 from .base import ParametricLaplace
 from .kron import Kron, KronDecomposed
@@ -39,6 +41,7 @@ class FullLaplace(ParametricLaplace):
         loss, H = self.backend.full(X, y, N=N)
         return loss.detach(), H.detach()
 
+    @annotate("laplace.fit")
     def fit(self, train_loader, override: bool = True) -> None:
         self._posterior_scale = None
         super().fit(train_loader, override=override)
@@ -128,6 +131,7 @@ class KronLaplace(ParametricLaplace):
         return Kron([[g[0], g[1] * factor] if len(g) == 2 else [g[0]]
                      for g in kron.kfacs])
 
+    @annotate("laplace.fit")
     def fit(self, train_loader, override: bool = True) -> None:
         if override:
             self.H_facs = None
@@ -218,6 +222,7 @@ class LowRankLaplace(ParametricLaplace):
     def _init_H(self) -> None:
         self.H = None
 
+    @annotate("laplace.fit")
     def fit(self, train_loader, override: bool = True) -> None:
         if not override:
             raise ValueError("LowRank LA does not support updating.")

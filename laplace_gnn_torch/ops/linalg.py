@@ -4,6 +4,11 @@ Counterpart of ``laplace_gnn_tpu/ops/linalg.py``. Eigenvalues are clamped
 at zero with ``torch.maximum`` rather than ``torch.clamp``: at an exact tie
 ``maximum`` splits the gradient in halves, as ``jnp.clip`` does, where
 ``clamp`` passes all of it.
+
+torch's eigensolvers check their result's ``info`` on the host, so each
+call makes the host wait for the device: each counts ``host_sync``
+(``profiling.py``); the batched ones run under the span ``eigh`` and
+count ``eigh.calls`` (one per same-size group) and ``eigh.matrices``.
 """
 
 from __future__ import annotations
@@ -11,6 +16,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..profiling import annotate, count, tracing
 
 
 def clip_min0(x: torch.Tensor) -> torch.Tensor:
@@ -21,6 +28,7 @@ def clip_min0(x: torch.Tensor) -> torch.Tensor:
 def symeig(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(eigenvalues clamped at 0, eigenvectors), NaNs zeroed; ascending."""
     M = 0.5 * (M + M.T)
+    count("host_sync")
     L, W = torch.linalg.eigh(M)
     return torch.nan_to_num(clip_min0(L)), torch.nan_to_num(W)
 
@@ -69,12 +77,21 @@ def _same_size_groups(mats) -> dict:
     return groups
 
 
+def _count_eigh(n_matrices: int) -> None:
+    count("eigh.calls")
+    count("eigh.matrices", n_matrices)
+    count("host_sync")
+
+
+@annotate("eigh")
 def batched_eigvalsh(mats) -> list:
     """Eigenvalues of several symmetric matrices; same-size matrices share
     one batched ``eigvalsh`` call. Ascending, one vector per input."""
     mats = list(mats)
     out: list = [None] * len(mats)
     for _, idxs in _same_size_groups(mats).items():
+        if tracing():
+            _count_eigh(len(idxs))
         if len(idxs) == 1:
             out[idxs[0]] = torch.linalg.eigvalsh(mats[idxs[0]])
         else:
@@ -127,12 +144,15 @@ def invsqrt_precision(M: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L_inv, eye, upper=False)
 
 
+@annotate("eigh")
 def batched_symeig(mats) -> list:
     """Like :func:`batched_eigvalsh` with eigenvectors, under
     :func:`symeig`'s clamp and NaN post-conditions."""
     mats = [0.5 * (m + m.T) for m in mats]
     out: list = [None] * len(mats)
     for _, idxs in _same_size_groups(mats).items():
+        if tracing():
+            _count_eigh(len(idxs))
         L, W = torch.linalg.eigh(torch.stack([mats[i] for i in idxs]))
         for t, i in enumerate(idxs):
             out[i] = (torch.nan_to_num(clip_min0(L[t])),

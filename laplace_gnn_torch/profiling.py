@@ -1,8 +1,28 @@
 """Profiling and timing helpers.
 
-Counterpart of ``laplace_gnn_tpu/profiling.py``: ``trace`` records a
-``torch.profiler`` trace (CPU and, where there is a card, CUDA activity) of
-the enclosed region into ``log_dir``, ``annotate`` names a region in it,
+Counterpart of ``laplace_gnn_tpu/profiling.py``, and the port's one
+tracing system:
+
+* ``annotate(name)`` is the program's span, as a context manager or as a
+  decorator. While no ``torch.profiler`` records it does one check
+  (``torch.autograd._profiler_enabled()``) and nothing more: no range, no
+  clock read, no allocation. While one records it opens
+  ``torch.profiler.record_function("lgnn." + name)``, so the span lies in
+  the profiler's own timeline, on the clock that it aligns with the
+  device's activity, nested in the span it was opened in.
+* ``count(name, n)`` adds to a counter while a profiler records and the
+  current stream is not capturing a CUDA graph; ``counters()`` is a
+  snapshot of the counts, ``reset_counters()`` clears them.
+* ``trace(log_dir)`` records a ``torch.profiler`` trace (CPU and, where
+  there is a card, CUDA activity) of the enclosed region: it clears the
+  counters when it starts and writes ``trace_<pid>_<ns>.json`` (Chrome
+  trace) and ``counters_<pid>_<ns>.json`` into ``log_dir`` when it ends.
+
+So tracing is on exactly while a profiler records; there is no other
+switch. Spans and counts inside a function that a CUDA graph captures
+fire once, at the capture: a replay runs none of the function's Python.
+``training/graphs.py::Step`` spans and counts each replay instead.
+
 ``device_time`` is the per-iteration time of a function as the slope of
 ``iters`` against ``4 * iters`` repetitions (CUDA events on the card, the
 host clock for CPU tensors), and ``memory_stats`` reads each card's
@@ -12,16 +32,105 @@ allocator statistics.
 from __future__ import annotations
 
 import contextlib
+import functools
+import json
 import os
+import threading
 import time
 from typing import Callable, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
+
+#: the prefix of the program's spans in a trace
+SPAN_PREFIX = "lgnn."
+
+_COUNTERS: dict = {}
+_COUNTERS_LOCK = threading.Lock()   # the autograd engine's threads count too
+_SPANS: dict = {}
+
+
+class _Span:
+    """One named span, shared by every site of that name. A range is
+    opened only when a profiler records at entry; the ranges open under
+    this name are a stack, so nested and recursive uses close in order
+    (one thread at a time inside a given span, as the program's are: the
+    backward's thread runs while the caller waits for it)."""
+
+    __slots__ = ("name", "_open")
+
+    def __init__(self, name: str):
+        self.name = SPAN_PREFIX + name
+        self._open: list = []
+
+    def __enter__(self) -> None:
+        if _profiler_enabled():
+            rf = torch.profiler.record_function(self.name)
+            rf.__enter__()
+            self._open.append(rf)
+
+    def __exit__(self, *exc) -> bool:
+        if self._open:
+            self._open.pop().__exit__(*exc)
+        return False
+
+    def __call__(self, fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with self:
+                return fn(*args, **kwargs)
+        return spanned
+
+
+def annotate(name: str) -> _Span:
+    """The span ``name`` (``lgnn.<name>`` in a trace), as a context
+    manager or a decorator:
+
+        with profiling.annotate("kfac"):
+            ...
+
+        @profiling.annotate("laplace.fit")
+        def fit(...): ...
+    """
+    span = _SPANS.get(name)
+    if span is None:
+        span = _SPANS[name] = _Span(name)
+    return span
+
+
+#: whether a profiler records, so spans and counters are live: one check,
+#: for a site that would do work to count
+tracing = _profiler_enabled
+
+
+def _capturing() -> bool:
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records (and no
+    CUDA graph is being captured on the current stream)."""
+    if _profiler_enabled() and not _capturing():
+        with _COUNTERS_LOCK:
+            _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A snapshot of the counters: {name: count}."""
+    with _COUNTERS_LOCK:
+        return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    with _COUNTERS_LOCK:
+        _COUNTERS.clear()
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = "laplace_gnn_trace"):
-    """Write a Chrome trace of the enclosed region into ``log_dir``:
+    """Write a Chrome trace of the enclosed region, and the counters it
+    counted, into ``log_dir``:
 
         with profiling.trace("traces"):
             train_step(...)
@@ -31,20 +140,16 @@ def trace(log_dir: str = "laplace_gnn_trace"):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = torch.profiler.profile(activities=activities)
+    reset_counters()
     prof.start()
     try:
         yield prof
     finally:
         prof.stop()
-        prof.export_chrome_trace(os.path.join(
-            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region in the trace's timeline."""
-    with torch.profiler.record_function(name):
-        yield
+        tag = f"{os.getpid()}_{time.time_ns()}"
+        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{tag}.json"))
+        with open(os.path.join(log_dir, f"counters_{tag}.json"), "w") as f:
+            json.dump(counters(), f, indent=1, sort_keys=True)
 
 
 def _first_tensor(tree) -> Optional[torch.Tensor]:

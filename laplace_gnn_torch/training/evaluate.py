@@ -1,22 +1,27 @@
 """Predictive-quality evaluation: accuracy, NLL, ECE and Brier score of the
 MAP and the Bayesian predictives (counterpart of
-``laplace_gnn_tpu/training/evaluate.py``)."""
+``laplace_gnn_tpu/training/evaluate.py``). Spans (``profiling.py``):
+``eval.map``, ``eval.predictive`` and ``eval.metrics``."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..profiling import annotate, count
 from ..utils.metrics import (accuracy, brier_score,
                              expected_calibration_error, nll_loss)
 from .marglik_gnn import _as_index
 
 
 def _numpy(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        count("host_sync")
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
+@annotate("eval.map")
 def evaluate_map(model, params: dict, indices, labels) -> dict:
     """Metrics of the softmax MAP predictive."""
     dev = params["adj"].device
@@ -27,6 +32,7 @@ def evaluate_map(model, params: dict, indices, labels) -> dict:
     return _metrics(_numpy(probs), _numpy(labels))
 
 
+@annotate("eval.predictive")
 def evaluate_predictive(la, indices, labels, pred_type: str = "glm",
                         link_approx: str = "probit",
                         n_samples: int = 100) -> dict:
@@ -53,6 +59,7 @@ def validate(la, loader, pred_type: str = "glm",
     return _metrics(np.concatenate(probs), np.concatenate(targets))
 
 
+@annotate("eval.metrics")
 def _metrics(probs: np.ndarray, labels: np.ndarray) -> dict:
     return {
         "acc": accuracy(probs, labels),

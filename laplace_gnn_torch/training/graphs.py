@@ -7,6 +7,11 @@ and output buffers. Calling the step calls the function, until
 on calling it replays the graph, so the host launches one graph instead
 of each of its kernels. The kernel wrappers count the launches recorded
 into a graph once per replay (``ops/launches.py``).
+
+Each call is a span, ``step.<name>`` when called eagerly and
+``step.<name>.replay`` when replayed, and counts as ``step.<name>.eager``
+or ``step.<name>.replay`` (``profiling.py``): a replay runs none of the
+function's Python, so the spans inside it are not seen again.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..ops.launches import KERNELS
+from ..profiling import annotate, count
 
 WARMUP = 2      # eager calls of each step before its capture
 
@@ -34,18 +40,26 @@ class Step:
         self.recorded: dict = {}        # wrapper -> launches a replay
         self.calls = 0
         self.launches: dict = {}
+        self._span = annotate(f"step.{name}")
+        self._replay_span = annotate(f"step.{name}.replay")
+        self._eager_counter = f"step.{name}.eager"
+        self._replay_counter = f"step.{name}.replay"
 
     def __call__(self) -> None:
         self.calls += 1
         if self.graph is None:
+            count(self._eager_counter)
             before = [k.launches for k in KERNELS]
-            self.fn()
+            with self._span:
+                self.fn()
             for k, n in zip(KERNELS, before):
                 if k.launches != n:
                     self.launches[k.name] = (self.launches.get(k.name, 0)
                                              + k.launches - n)
             return
-        self.graph.replay()
+        count(self._replay_counter)
+        with self._replay_span:
+            self.graph.replay()
         for k, n in self.recorded.items():
             k.count_replay(n)
             self.launches[k.name] = self.launches.get(k.name, 0) + n

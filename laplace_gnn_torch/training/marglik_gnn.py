@@ -36,6 +36,7 @@ from ..graph.data import adj_to_edge_index
 from ..graph.homophily import avg_local_homophilies, global_homophily
 from ..laplace.dispatch import Laplace
 from ..ops.linalg import batched_eigvalsh, clip_min0
+from ..profiling import annotate, count
 from ..utils.data import ArrayLoader
 from ..utils.pytree import named_leaves
 from .graphs import Step, capture
@@ -80,8 +81,8 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
     if (cache_static_factors and hessian_structure == "kron"
             and getattr(model, "first_tap_static", False)
             and subset_of_weights == "all"):
-        lam = torch.linalg.eigvalsh(_static_input_cov(
-            model, N, "expand", model.X.dtype))
+        (lam,) = batched_eigvalsh([_static_input_cov(
+            model, N, "expand", model.X.dtype)])
         site0 = model.tap_sites(None)[0]["name"]
         # the backend returns `kron * factor`, which scales a len-2 group's
         # A by sqrt(factor); bake that in so the cache is exact
@@ -89,6 +90,7 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
             likelihood_factor(likelihood))
 
     shared_b = likelihood_factor(likelihood) == 1.0
+    ggn_span = annotate(f"ggn.{hessian_structure}")
 
     def _kron_logdet(kron, group_sites, prior_prec):
         """log det(H_factor * (B (x) A) + delta I), block by block; all
@@ -149,8 +151,13 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
         return out
 
     def fn(params, X, y):
-        backend = GGNBackend(model, params, likelihood,
-                             last_layer=(subset_of_weights == "last_layer"))
+        """Spans: ``marglik.backend`` (the backend, the prior terms and the
+        Kron blocks' sites), ``kfac`` (or ``ggn.diag`` / ``ggn.full``) and
+        ``logdet``."""
+        with annotate("marglik.backend"):
+            backend = GGNBackend(model, params, likelihood,
+                                 last_layer=(subset_of_weights
+                                             == "last_layer"))
         if hessian_structure == "kron":
             loss, H = backend.kron(X, y, N=N, fisher_type=fisher_type,
                                    column_chunk=column_chunk,
@@ -161,25 +168,29 @@ def make_neg_marglik_fn(model, likelihood: str, hessian_structure: str,
         else:
             closure = {"diag": backend.diag,
                        "full": backend.full}[hessian_structure]
-            loss, H = closure(X, y, N=N)
-        loglik = -H_factor * loss
-        if likelihood == "regression":
-            n_outputs = y.shape[-1] if y.dim() > 1 else 1
-            loglik = loglik - N * n_outputs * math.log(
-                sigma_noise * math.sqrt(2 * math.pi))
-        theta = backend.mean_vector()
-        prior_diag = prior_precision * torch.ones_like(theta)
-        logdet_prior = torch.sum(torch.log(prior_diag))
-        scatter = torch.sum(theta ** 2 * prior_diag)
-        if hessian_structure == "kron":
-            logdet_post = _kron_logdet(H, _group_sites(backend),
-                                       prior_precision)
-        elif hessian_structure == "diag":
-            logdet_post = torch.sum(torch.log(H_factor * H + prior_diag))
-        else:
-            logdet_post = torch.linalg.slogdet(
-                H_factor * H + torch.diag(prior_diag))[1]
-        marglik = loglik - 0.5 * (logdet_post - logdet_prior + scatter)
+            with ggn_span:
+                loss, H = closure(X, y, N=N)
+        with annotate("marglik.backend"):
+            loglik = -H_factor * loss
+            if likelihood == "regression":
+                n_outputs = y.shape[-1] if y.dim() > 1 else 1
+                loglik = loglik - N * n_outputs * math.log(
+                    sigma_noise * math.sqrt(2 * math.pi))
+            theta = backend.mean_vector()
+            prior_diag = prior_precision * torch.ones_like(theta)
+            logdet_prior = torch.sum(torch.log(prior_diag))
+            scatter = torch.sum(theta ** 2 * prior_diag)
+            sites = (_group_sites(backend) if hessian_structure == "kron"
+                     else None)
+        with annotate("logdet"):
+            if hessian_structure == "kron":
+                logdet_post = _kron_logdet(H, sites, prior_precision)
+            elif hessian_structure == "diag":
+                logdet_post = torch.sum(torch.log(H_factor * H + prior_diag))
+            else:
+                logdet_post = torch.linalg.slogdet(
+                    H_factor * H + torch.diag(prior_diag))[1]
+            marglik = loglik - 0.5 * (logdet_post - logdet_prior + scatter)
         return -marglik
 
     return fn
@@ -289,21 +300,25 @@ class TrainingPrograms:
         """One SGD step on the adjacency parameters along their
         d(-log marglik); returns the -log marglik before the step.
         ``grad_norm`` rescales the gradient of ``adj`` alone, as JAX does
-        (so it leaves LoRA's updates as they are)."""
+        (so it leaves LoRA's updates as they are). Spans: the -log
+        marglik's, ``hypergrad`` (its gradient, rescaled) and
+        ``adj_update`` (the SGD step)."""
         nm = self.neg_marglik_fn(self.params, idx, yy)
         leaves = [self.params[k] for k in self.adj_names]
-        grads = [None] * len(leaves)
-        if nm.requires_grad:   # False when no path reaches any parameter
-            grads = torch.autograd.grad(nm, leaves, allow_unused=True)
-        for name, p, g in zip(self.adj_names, leaves, grads):
-            if g is None:      # unreachable: the fused op's zero grad
-                g = torch.zeros_like(p)
-            if self.grad_norm and name == "adj":
-                gnorm = torch.sqrt(torch.sum(g ** 2))
-                g = g * torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12),
-                                    max=1.0)
-            p.grad = g
-        self.adj_opt.step()
+        with annotate("hypergrad"):
+            grads = [None] * len(leaves)
+            if nm.requires_grad:   # False when no path reaches a parameter
+                grads = torch.autograd.grad(nm, leaves, allow_unused=True)
+            for name, p, g in zip(self.adj_names, leaves, grads):
+                if g is None:      # unreachable: the fused op's zero grad
+                    g = torch.zeros_like(p)
+                if self.grad_norm and name == "adj":
+                    gnorm = torch.sqrt(torch.sum(g ** 2))
+                    g = g * torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12),
+                                        max=1.0)
+                p.grad = g
+        with annotate("adj_update"):
+            self.adj_opt.step()
         return nm.detach()
 
     def neg_marglik_eval(self, idx, yy):
@@ -493,13 +508,16 @@ def marglik_optimization(model, params: dict,
     return results, snapshot(), losses, val_losses, neg_margliks
 
 
+@annotate("eval.mean")
 def mean_eval(model, params: dict, indices, labels):
-    """MAP loss and accuracy (percent) on the given nodes."""
+    """MAP loss and accuracy (percent) on the given nodes (the span
+    ``eval.mean``)."""
     dev = params["adj"].device
     idx = _as_index(indices, dev)
     labels = _as_index(labels, dev)
     with torch.no_grad():
         f = model.apply({k: v.detach() for k, v in params.items()}, idx)
+        count("host_sync", 2)
         loss = float(cross_entropy_sum(f, labels) / labels.shape[0])
         acc = float(_accuracy(f, labels)) * 100
     return loss, acc
@@ -652,6 +670,7 @@ def marglik_optimization_scan(model, params: dict,
     run(params, train_indices, train_labels, val_indices, val_labels)
 
     final = run.copy_params(run.params)
+    count("host_sync", 2 + len(run.traces))  # the reads below
     if snapshots:
         _write_scan_snapshots(model, learned_graphs_dir, run.snaps,
                               run.traces, final, y)
@@ -667,6 +686,11 @@ def marglik_optimization_scan(model, params: dict,
             traces["neg_marglik"])
 
 
+def _host_flag(t: torch.Tensor) -> bool:
+    count("host_sync")
+    return bool(t)
+
+
 def _write_scan_snapshots(model, learned_graphs_dir, snaps, traces,
                           params_final, y):
     """The host-side dump of the on-device hyper-phase snapshots, with the
@@ -674,13 +698,14 @@ def _write_scan_snapshots(model, learned_graphs_dir, snaps, traces,
     ``homophily``, ``epoch``, and ``latest_adj.npy``), so
     ``graph/plots.py`` reads both."""
     os.makedirs(learned_graphs_dir, exist_ok=True)
-    count = int(snaps["count"])
-    adjs = snaps["adj"][:count].cpu().numpy()
-    epochs = snaps["epoch"][:count].cpu().numpy()
-    n_edges = snaps["num_edges"][:count].cpu().numpy()
+    count("host_sync", 6)       # the five reads below and latest_adj's
+    n_snaps = int(snaps["count"])
+    adjs = snaps["adj"][:n_snaps].cpu().numpy()
+    epochs = snaps["epoch"][:n_snaps].cpu().numpy()
+    n_edges = snaps["num_edges"][:n_snaps].cpu().numpy()
     nm_trace = traces["neg_marglik"].cpu().numpy()
     y_np = np.asarray(y) if y is not None else None
-    for k in range(count):
+    for k in range(n_snaps):
         adj = adjs[k].astype(np.float32)
         epoch = int(epochs[k])
         h = global_homophily(adj, y_np) if y_np is not None else None
@@ -909,7 +934,7 @@ class ScanRun:
             # the one host read of the run: at a scheduled hyper phase, and
             # only when the early stop can have halted the graph updates
             if epoch in hyper and not (self.early_stop
-                                       and bool(self.best["no_adj"])):
+                                       and _host_flag(self.best["no_adj"])):
                 for _ in range(self.n_hypersteps):
                     steps["hyperstep"]()
                 if self.snaps["adj"].shape[0]:

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..profiling import count
 
 SPARSE_MODELS = ("sparsegcn", "sparsesage", "sparsegat")
 
@@ -162,6 +163,7 @@ def predict(args, model, params: dict, la, test_idx) -> dict:
     probs_map = torch.softmax(model.apply(params, test_idx), dim=-1)
     probs_bayes = la(test_idx, pred_type="nn", link_approx="mc",
                      n_samples=args.n_mc_samples)
+    count("host_sync", 2)
     return {"map": probs_map.float().cpu().numpy(),
             "laplace": probs_bayes.float().cpu().numpy()}
 

@@ -93,13 +93,16 @@ def test_profiling_helpers_on_the_cpu(tmp_path):
     with pytest.raises(ValueError, match="tensor"):
         profiling.device_time(lambda s: s, 2.0)
     assert profiling.memory_stats() == {}      # no card here
+    with profiling.annotate("matmul"):     # no profiler: no range
+        a @ a
     with profiling.trace(str(tmp_path / "tr")):
         with profiling.annotate("matmul"):
             a @ a
-    files = os.listdir(tmp_path / "tr")
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(tmp_path / "tr" / files[0]) as f:
-        assert "matmul" in f.read()
+    files = sorted(os.listdir(tmp_path / "tr"))
+    assert len(files) == 2 and all(f.endswith(".json") for f in files)
+    assert files[0].startswith("counters_") and files[1].startswith("trace_")
+    with open(tmp_path / "tr" / files[1]) as f:
+        assert "lgnn.matmul" in f.read()
 
 
 # --- the baseline evaluator -----------------------------------------------
