@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only sparse     # phase 18 alone, no build
     python3 chip_smoke.py --only parallel   # build + phases 19 and 20
     python3 chip_smoke.py --only examples   # build + phase 21
+    python3 chip_smoke.py --only small_eigh # build + phase 22, kernel work
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
@@ -260,7 +261,17 @@ Phases, each fatal:
      shape that example launched it with (``flash_check``). Examples 05
      (scikit-learn) and 11 (matplotlib) need packages this machine lacks:
      the phase prints that they were not run, and why; the CPU tests run
-     them.
+     them;
+ 22. (run right after phase 2) the small eigensolver
+     (``csrc/small_eigh.cu``) at the main path's shapes, (2, 64, 64) and
+     (1, 7, 7) in f32: values against the plain version in float64 and
+     the Jacobi vectors' residual, timed cold beside the plain version
+     (the CPU) and ``torch.linalg.eigvalsh`` on the card; then n = 1, 2,
+     31, 32, 33, 65, 127, 128 in f32 and f64 at batches 1-4 (one matrix
+     with exactly repeated eigenvalues), the zero matrix, and a
+     non-finite input that must set the failure flag. Phase 16 requires
+     every step of both whole runs captured and counts the solver's
+     launches in the warm call.
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -270,7 +281,8 @@ core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2, and
 ``--only flash`` phases 1 (``flash_attention.cu`` alone) and 4, and
 ``--only sparse`` phase 18 alone (it builds no kernel), ``--only
 parallel`` phases 1 (``core_spmm.cu`` and ``flash_attention.cu``), 19
-and 20, ``--only examples`` phases 1 (``flash_attention.cu``) and 21.
+and 20, ``--only examples`` phases 1 (``flash_attention.cu``) and 21,
+``--only small_eigh`` phases 1 (``small_eigh.cu``) and 22.
 Exits
 non-zero, with no result, when there is no CUDA device or the package is
 not beside it.
@@ -3001,6 +3013,111 @@ except Exception as e:
 """
 
 
+# the small eigensolver's shapes on the main path (Cora's widths: the two
+# 64 x 64 factors of a Kron step, and the 7 x 7 one), then edge sizes
+SMALL_EIGH_MAIN = ((2, 64), (1, 7))
+SMALL_EIGH_CHECKS = (1, 2, 31, 32, 33, 65, 127, 128)
+
+
+def _small_eigh_inputs(torch, b, n, dtype, seed):
+    """(b, n, n) PSD matrices on the card: a random Gram matrix, and in the
+    second of a batch (if any) exactly repeated eigenvalues."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(b, n, n, generator=g, dtype=torch.float64)
+    M = A @ A.mT / n
+    if b > 1:
+        Q, _ = torch.linalg.qr(A[1])
+        lam = torch.where(torch.arange(n) < n // 2, 2.0, 7.0).double()
+        M[1] = (Q * lam) @ Q.T
+    return (0.5 * (M + M.mT)).to(device="cuda", dtype=dtype)
+
+
+def _small_eigh_check(torch, linalg, M):
+    """Largest gap of the values kernel from the plain version (float64 on
+    the CPU, same rounded input) over ||M||_2, and of the vectors kernel's
+    residual ||M V - V diag(w)|| over ||M||_2; raises past 4 n eps."""
+    n = M.shape[-1]
+    Md = M.double().cpu()
+    ref = torch.linalg.eigvalsh(Md)
+    norm = max(float(torch.linalg.matrix_norm(Md, 2).max()), 1e-300)
+    got = linalg.eigvalsh_kernel(M).double().cpu()
+    V = linalg.small_eigenvectors(M).double().cpu()
+    err = float((got - ref).abs().max()) / norm
+    res = float((Md @ V - V * ref[:, None, :]).abs().max()) / norm
+    tol = 4 * n * torch.finfo(M.dtype).eps
+    if not (err <= tol and res <= 2 * tol):
+        raise AssertionError(f"small eigensolver at {tuple(M.shape)} "
+                             f"{M.dtype}: values {err:.3e}, vectors "
+                             f"{res:.3e} (limits {tol:.3e}, {2 * tol:.3e})")
+    return err, res
+
+
+def phase_small_eigh(torch, linalg, peaks):
+    """The small eigensolver (csrc/small_eigh.cu) at the main path's
+    shapes, (2, 64, 64) and (1, 7, 7) in f32: values held to the plain
+    version in float64 (within 4 n eps ||M||_2, the backward-stable bound
+    of the Householder reduction) and the Jacobi vectors' residual (twice
+    that), timed cold beside the plain version (torch.linalg.eigvalsh on
+    the CPU, host clock) and torch.linalg.eigvalsh on the card (cuSOLVER)
+    as the library's; bound: the bytes in and out over the memory rate
+    against (4/3) n^3 a matrix over the f32 rate outside the tensor cores.
+    Then the edge sizes in f32 and f64, batches 1-4, and a non-finite
+    input, which must set the flag and give NaN values for its matrix
+    alone."""
+    bw, _ = peaks
+    rows, checks = [], []
+    for b, n in SMALL_EIGH_MAIN:
+        M = _small_eigh_inputs(torch, b, n, torch.float32, seed=n)
+        err, res = _small_eigh_check(torch, linalg, M)
+        Mc = M.cpu()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            torch.linalg.eigvalsh(Mc)
+        plain_ms = (time.perf_counter() - t0) * 10
+        t_b = (b * n * n + b * n) * 4 / bw        # M read, values written
+        t_o = b * (4.0 / 3.0) * n ** 3 / FP32_PEAK
+        rows.append({
+            "shape": [b, n, n], "dtype": "float32",
+            "ms": cold_ms(torch, lambda: linalg.eigvalsh_kernel(M)),
+            "vectors_ms": cold_ms(torch, lambda: linalg.eigh_kernel(M)),
+            "plain_ms": plain_ms,
+            "library_ms": cold_ms(torch, lambda: torch.linalg.eigvalsh(M)),
+            "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "max_rel_err": err, "vectors_residual": res,
+            "card_after": card_state()})
+        print("small_eigh " + json.dumps(rows[-1]), flush=True)
+    for i, n in enumerate(SMALL_EIGH_CHECKS):
+        for dt in (torch.float32, torch.float64):
+            M = _small_eigh_inputs(torch, 1 + i % 4, n, dt, seed=100 + n)
+            err, res = _small_eigh_check(torch, linalg, M)
+            checks.append({"n": n, "batch": M.shape[0], "dtype": str(dt),
+                           "max_rel_err": err, "vectors_residual": res})
+    zero = torch.zeros(1, 33, 33, device="cuda")
+    if float(linalg.eigvalsh_kernel(zero).abs().max()) > 1e-30:
+        raise AssertionError("small eigensolver: the zero matrix")
+    linalg.reset_eigensolve_failures("cuda")
+    linalg.raise_on_failed_eigensolve("cuda")
+    M = _small_eigh_inputs(torch, 3, 16, torch.float32, seed=3)
+    M[1, 5, 2] = float("inf")
+    lam = linalg.eigvalsh_kernel(M)
+    flagged = False
+    try:
+        linalg.raise_on_failed_eigensolve("cuda")
+    except FloatingPointError:
+        flagged = True
+    if not (flagged and bool(torch.isnan(lam[1]).all())
+            and bool(torch.isfinite(lam[0::2]).all())):
+        raise AssertionError("small eigensolver: a non-finite input was "
+                             "not flagged, or spread past its matrix")
+    print(f"small_eigh: {len(checks)} edge checks within 4 n eps, the "
+          f"largest {max(c['max_rel_err'] for c in checks):.3e} (values) "
+          f"and {max(c['vectors_residual'] for c in checks):.3e} "
+          f"(vectors); zero matrix and a non-finite input flagged",
+          flush=True)
+    return rows, checks
+
+
 def _trace_gap(a, b) -> float:
     """Largest |a - b| / |b| over two traces."""
     return max(abs(float(x) - float(z)) / max(abs(float(z)), 1e-30)
@@ -3047,10 +3164,12 @@ def phase_whole_run(torch, np, card):
     from torch.profiler import ProfilerActivity, profile
 
     from laplace_gnn_torch.models import STEGCN
+    from laplace_gnn_torch.ops import linalg
     from laplace_gnn_torch.ops.fused_spmm import core
     from laplace_gnn_torch.training.marglik_gnn import (
         _model_program_cache, marglik_optimization,
         marglik_optimization_scan)
+    eig_kernels = (linalg.eigvalsh_kernel, linalg.eigh_kernel)
 
     try:
         r = subprocess.run([sys.executable, "-c", EIGVALSH_CAPTURE],
@@ -3094,8 +3213,13 @@ def phase_whole_run(torch, np, card):
         graphs = {k: s.graph for k, s in run.steps.items()}
         before = _step_launches(run)
         core.launches = core.replayed = 0
+        eig_before = [k.launches for k in eig_kernels]
         warm, warm_s = timed_run(scan)
         launches, replayed = core.launches, core.replayed
+        eig_launches = {k.name: k.launches - n
+                        for k, n in zip(eig_kernels, eig_before)}
+        if not all(run.captured.values()):
+            raise AssertionError(f"{label}: captured {run.captured}")
         after = _step_launches(run)
         if len(cache) != 1 or next(iter(cache.values())) is not run or any(
                 s.graph is not graphs[k] for k, s in run.steps.items()):
@@ -3158,6 +3282,8 @@ def phase_whole_run(torch, np, card):
               f"{eager_s:.3f} s (host clock); warm vs cold traces "
               f"{'bit-equal' if cold_gap == 0 else cold_gap}; captured "
               f"{run.captured}; "
+              f"small eigensolver launches in the warm call "
+              f"{eig_launches}; "
               f"core_spmm launches: cold {cold_launches}, warm {launches} "
               f"({replayed} replayed from graphs, {launches - replayed} "
               f"from Python), eager {eager_launches}; per call of each "
@@ -3173,7 +3299,8 @@ def phase_whole_run(torch, np, card):
         out[f"fused={fused}"] = {
             "cold_s": cold_s, "warm_s": warm_s, "eager_s": eager_s,
             "warm_vs_cold_gap": cold_gap,
-            "captured": run.captured, "core_spmm": {
+            "captured": run.captured, "small_eigh": eig_launches,
+            "core_spmm": {
                 "cold": cold_launches, "warm": launches,
                 "warm_replayed": replayed, "eager": eager_launches,
                 "per_step_call": per_step},
@@ -3289,7 +3416,8 @@ def phase_whole_run_small(torch, np):
     through the kernel); a run that captures while a dead one awaits
     collection (``_dead_run_at_capture``); and the diagonal curvature,
     whose -log marglik evaluation and hyperstep replay from graphs too,
-    against the eager loop on the card."""
+    against the eager loop on the card; and a small GAT (hidden 8, 2
+    heads), whose Kron evaluation is captured, against its eager loop."""
     from laplace_gnn_torch.models import STEGCN
     from laplace_gnn_torch.training.marglik_gnn import (
         _model_program_cache, marglik_optimization,
@@ -3342,6 +3470,23 @@ def phase_whole_run_small(torch, np):
                                  device="cuda", **diag)
     out["diag"] = _run_pair(torch, scan, eager,
                             "small whole run, diag curvature, all captured")
+    # GAT at a width whose Kron factors fit the small eigensolver: its -log
+    # marglik evaluation (Kron type-2, exact diagonal blocks for the
+    # attention vectors, through jvp_safe) replays from a graph too
+    from laplace_gnn_torch.models import GAT
+    g = GAT(f, 8, 8, 2, X, adj, heads=2, concat=True, dropout_p=0.0,
+            attention_impl="flash", device="cuda",
+            generator=torch.Generator().manual_seed(0))
+    gkw = dict(kw, model_type="gat")
+    scan = marglik_optimization_scan(g, g.params(), *split, device="cuda",
+                                     **gkw)
+    (run,) = _model_program_cache(g).values()
+    if not all(run.captured.values()):
+        raise AssertionError(f"small GAT whole run captured {run.captured}")
+    eager = marglik_optimization(g, g.params(), *split, verbose=False,
+                                 device="cuda", **gkw)
+    out["gat"] = _run_pair(torch, scan, eager,
+                           "small whole run, GAT, all captured")
     return out
 
 
@@ -4665,7 +4810,8 @@ def build_kernels(cuda_build, out_dir, names=None):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["matmul", "core_spmm", "flash",
-                                           "sparse", "parallel", "examples"],
+                                           "sparse", "parallel", "examples",
+                                           "small_eigh"],
                         help="build and run this kernel's phase alone; "
                              "prints no ok line")
     args = parser.parse_args(argv)
@@ -4680,6 +4826,7 @@ def main(argv=None) -> int:
     from laplace_gnn_torch.ops import cuda_build
     from laplace_gnn_torch.ops import flash_attention as fa
     from laplace_gnn_torch.ops import fused_spmm as fs
+    from laplace_gnn_torch.ops import linalg
     from laplace_gnn_torch.ops import matmul as mm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4701,6 +4848,16 @@ def main(argv=None) -> int:
                        "matmul": mm_rows}, f, indent=1)
         print(card, flush=True)
         print(json.dumps({"partial": ["matmul"]}), flush=True)
+        return 0
+    if args.only == "small_eigh":
+        build_kernels(cuda_build, out_dir, ["small_eigh"])
+        rows, checks = phase_small_eigh(torch, linalg, peaks)
+        with open(os.path.join(out_dir, "chip_smoke_small_eigh.json"),
+                  "w") as f:
+            json.dump({"card": card, "kind": kind, "peaks": peak_name,
+                       "small_eigh": rows, "checks": checks}, f, indent=1)
+        print(card, flush=True)
+        print(json.dumps({"partial": ["small_eigh"]}), flush=True)
         return 0
     if args.only == "core_spmm":
         build_kernels(cuda_build, out_dir, ["core_spmm"])
@@ -4781,6 +4938,8 @@ def main(argv=None) -> int:
 
     rows, max_err = phase("2", phase_kernel, torch, fs, peaks)
     core_checks = phase("2", phase_core_checks, torch, fs)
+    eig_rows, eig_checks = phase("22", phase_small_eigh, torch, linalg,
+                                 peaks)
     small = phase("3", phase_small_reference, torch, np)
     run, stegcn_state = phase("3", phase_trainer, torch, np, card)
 
@@ -4881,8 +5040,22 @@ def main(argv=None) -> int:
                            if x["dtype"] == "float32"),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the small eigensolver replaces no Pallas kernel (XLA's eigvalsh in
+    # laplace_gnn_tpu/ops/linalg.py); its row is the (2, 64, 64) call
+    r = eig_rows[0]
+    kernels.append({
+        "name": linalg.eigvalsh_kernel.name, "route": "cuda",
+        "source": linalg.eigvalsh_kernel.source,
+        "replaces": "none: XLA's eigvalsh (laplace_gnn_tpu/ops/linalg.py)",
+        "launches": whole["fused=True"]["small_eigh"],
+        "launches_composed": whole["fused=False"]["small_eigh"],
+        "max_rel_err": max(x["max_rel_err"] for x in eig_rows + eig_checks),
+        "ms": r["ms"], "ms_7": eig_rows[1]["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"]})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "peaks": peak_name,
+                   "small_eigh": eig_rows, "small_eigh_checks": eig_checks,
                    "core_spmm": rows, "core_spmm_checks": core_checks,
                    "trainer": run, "small": small,
                    "flash": flash_rows, "flash_checks": flash_checks,

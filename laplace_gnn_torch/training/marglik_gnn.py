@@ -35,10 +35,12 @@ from ..device import resolve_device
 from ..graph.data import adj_to_edge_index
 from ..graph.homophily import avg_local_homophilies, global_homophily
 from ..laplace.dispatch import Laplace
-from ..ops.linalg import batched_eigvalsh, clip_min0
+from ..ops.linalg import (SMALL_N, batched_eigvalsh, clip_min0,
+                          raise_on_failed_eigensolve,
+                          reset_eigensolve_failures)
 from ..profiling import annotate, count
 from ..utils.data import ArrayLoader
-from ..utils.pytree import named_leaves
+from ..utils.pytree import DEFAULT_EXCLUDE, named_leaves
 from .graphs import Step, capture
 
 PATIENCE = 20
@@ -430,6 +432,7 @@ def marglik_optimization(model, params: dict,
         return {k: v.detach().clone() for k, v in params.items()}
 
     print_graph_stats()
+    reset_eigensolve_failures(dev)
     losses, val_losses, neg_margliks = [], [], []
     best_neg_marglik, best_valloss = np.inf, np.inf
     best_marglik_params, best_valloss_params = None, None
@@ -459,6 +462,7 @@ def marglik_optimization(model, params: dict,
             print_graph_stats()
 
         nm = float(progs.neg_marglik_eval(train_indices, train_labels))
+        raise_on_failed_eigensolve(dev)
         loss_f = float(loss)
         if val_indices is not None:
             vl, va = (float(m) for m in progs.val_metrics(val_indices,
@@ -626,9 +630,11 @@ def marglik_optimization_scan(model, params: dict,
 
     On a GPU the program is built on the first call of a configuration:
     the train step, the validation forward with the tracking, and (when
-    the curvature holds no eigensolve) the -log marglik evaluation and the
-    hyperstep are captured as CUDA graphs (``training/graphs.py``) and
-    replayed every epoch; ``_build_scan_run`` says which. The program is
+    their curvature makes no host read, :func:`capture_plan`) the -log
+    marglik evaluation and the hyperstep are captured as CUDA graphs
+    (``training/graphs.py``) and replayed every epoch. A small eigensolve
+    that failed (a non-finite factor) raises at the run's end, where the
+    run first reads the device. The program is
     cached on the model under the static configuration (the split's
     shapes included): a later call with any split of the same shapes
     copies it into the program's own tensors and replays.
@@ -668,6 +674,8 @@ def marglik_optimization_scan(model, params: dict,
         diag_probes=diag_probes, probe_batch=probe_batch,
         fisher_seed=fisher_seed, snapshots=snapshots)
     run(params, train_indices, train_labels, val_indices, val_labels)
+    # the first host read of the run, which the reads below wait for too
+    raise_on_failed_eigensolve(dev)
 
     final = run.copy_params(run.params)
     count("host_sync", 2 + len(run.traces))  # the reads below
@@ -757,19 +765,64 @@ def _build_scan_run(model, params, *, dev, n_val, lr, lr_adj, weight_decay,
     return run
 
 
+def kron_step_sizes(model, params: dict, subset_of_weights: str) -> list:
+    """The sizes of the Kron factors that each -log marglik evaluation and
+    hyperstep eigendecompose, from the model's tap sites: each site's B
+    (its Linear's out width) and A (its in width), but for the first
+    site's A when ``make_neg_marglik_fn`` decomposes it once at the build
+    (raw features, all weights)."""
+    sites, _ = _posterior_sites(model, params, DEFAULT_EXCLUDE,
+                                subset_of_weights == "last_layer",
+                                allow_incomplete=True)
+    static = (model.tap_sites(None)[0]["name"]
+              if getattr(model, "first_tap_static", False)
+              and subset_of_weights == "all" else None)
+    sizes = []
+    for site in sites:
+        path = ".".join(map(str, site["param_path"]))
+        n_out, n_in = params[path + ".weight"].shape
+        sizes += [n_out] if site["name"] == static else [n_out, n_in]
+    return sizes
+
+
+def capture_plan(gpu: bool, model, params: dict, *, hessian_structure: str,
+                 subset_of_weights: str, fisher_type: str,
+                 column_chunk=None, diag_probes=None, **_) -> dict:
+    """Which of the whole run's steps replay from a CUDA graph: on a GPU
+    the train and tracking steps always, the -log marglik evaluation and
+    the hyperstep when their curvature makes no host read. The diagonal
+    GGN makes none. The Kron structure makes none with the type-2 Fisher
+    (the sketch and MC draw on the CPU), whole pullbacks (column blocks
+    are checkpointed, which reads the RNG state), exact diagonal blocks
+    (Hutchinson probes draw on the CPU) and every factor of
+    :func:`kron_step_sizes` within the capturable eigensolver's
+    ``SMALL_N``. ``full`` decomposes with slogdet, which checks on the
+    host. On the CPU nothing is captured."""
+    curvature = gpu and (hessian_structure == "diag" or (
+        hessian_structure == "kron" and fisher_type == "type-2"
+        and column_chunk is None and diag_probes is None
+        and max(kron_step_sizes(model, params, subset_of_weights),
+                default=0) <= SMALL_N))
+    return {"train_step": gpu, "hyperstep": curvature,
+            "neg_marglik": curvature, "tracking": gpu}
+
+
 class ScanRun:
     """The program of one whole-run configuration: its state tensors, its
     steps and, on a GPU, their CUDA graphs.
 
-    ``captured`` says which steps replay from a graph. On a GPU the train
-    step and the tracking step (the validation forward, the trace writes
-    and the best-value selects) are captured; the -log marglik evaluation
-    and the hyperstep are captured only when the curvature has no
-    eigensolve (``hessian_structure="diag"``), since torch's eigensolvers
-    check their result on the host, which a capture refuses (the Kron
-    log-determinant's eigvalsh, Full's slogdet). So the Kron fisher types
-    that draw on the CPU (sketch, MC) never enter a capture either. A
-    capture that fails raises. On the CPU every step runs as it is."""
+    ``captured`` says which steps replay from a graph (:func:`capture_plan`).
+    On a GPU the train step and the tracking step (the validation forward,
+    the trace writes and the best-value selects) are captured; the -log
+    marglik evaluation and the hyperstep are captured when their curvature
+    makes no host read: the diagonal GGN, and the Kron structure with the
+    type-2 Fisher whose every per-step factor fits the small eigensolver
+    (``ops/linalg.py::SMALL_N``), which keeps its status on the device.
+    (The first layer's A over the raw features is decomposed once, at the
+    build, by ``torch.linalg.eigvalsh`` at any size.) The Kron fisher
+    types that draw on the CPU (sketch, MC), Full's slogdet and any model
+    wider than ``SMALL_N`` stay eager. A capture that fails raises. On
+    the CPU every step runs as it is."""
 
     def __init__(self, model, params, dev, n_val, *, n_epochs, n_hypersteps,
                  n_epochs_burnin, n_hyper_stop, marglik_frequency,
@@ -830,14 +883,11 @@ class ScanRun:
                       "count": zeros(dtype=torch.long)}
 
         gpu = dev.type == "cuda"
-        curvature = gpu and hessian_structure == "diag"
-        self.steps = {
-            "train_step": Step("train_step", self._train_step, gpu),
-            "hyperstep": Step("hyperstep", self._hyperstep, curvature),
-            "neg_marglik": Step("neg_marglik", self._neg_marglik,
-                                curvature),
-            "tracking": Step("tracking", self._tracking, gpu)}
-        self.captured = {k: s.capture for k, s in self.steps.items()}
+        self.captured = capture_plan(gpu, model, self.params,
+                                     hessian_structure=hessian_structure,
+                                     **cfg)
+        self.steps = {k: Step(k, getattr(self, f"_{k}"), self.captured[k])
+                      for k in self.captured}
         if gpu:
             # the warm-up runs on these parameters at node 0
             self._load(params, self.tr_idx, self.tr_y, self.va_idx,
@@ -902,9 +952,11 @@ class ScanRun:
     # --- a run ------------------------------------------------------------
     @torch.no_grad()
     def _load(self, params, tr_idx, tr_y, va_idx, va_y):
-        """Copy a call's inputs in and reset every piece of state."""
+        """Copy a call's inputs in and reset every piece of state (the
+        eigensolver's failure flag too)."""
         for k, v in self.params.items():
             v.copy_(params[k])
+        reset_eigensolve_failures(self.params["adj"].device)
         for dst, src in ((self.tr_idx, tr_idx), (self.tr_y, tr_y),
                          (self.va_idx, va_idx), (self.va_y, va_y)):
             dst.copy_(src)
