@@ -28,6 +28,7 @@ from ..graph.container import (FastAggGraph, SparseGraph,
                                ell_gat_attention, ell_gat_layout, gather,
                                segment_sum, _leaky_relu, _torch_dtype)
 from ..nn.module import Linear, TapCollector, activation_resolver, dropout
+from ..profiling import count, spanned, tracing
 from ..utils.pytree import named_leaves
 from .base_gnn import BaseGNN, _as_tensor, select_rows
 from .layers import GCNConv
@@ -93,13 +94,31 @@ class SparseGATConv(nn.Module):
                 taps: Optional[TapCollector] = None) -> torch.Tensor:
         n = x.shape[0]
         h = self.lin(x, taps=taps).reshape(n, self.heads, self.out_channels)
-        g = getattr(graph, "graph", graph)           # unwrap FastAggGraph
         a_src = torch.sum(h * self.att_src, dim=-1)                 # (N, H)
         a_dst = torch.sum(h * self.att_dst, dim=-1)
+        if tracing():
+            g = getattr(graph, "graph", graph)       # unwrap the wrapper
+            count("gat.calls")
+            count("gat.edge_columns",
+                  g.n_edges * self.heads * self.out_channels)
+            out = spanned("gat.attention", self._attend, graph, h, a_src,
+                          a_dst)
+        else:
+            out = self._attend(graph, h, a_src, a_dst)
+        if self.concat:
+            out = out.reshape(n, self.heads * self.out_channels)
+        else:
+            out = torch.mean(out, dim=1)
+        return out + self.bias if self.bias is not None else out
+
+    def _attend(self, graph, h: torch.Tensor, a_src: torch.Tensor,
+                a_dst: torch.Tensor) -> torch.Tensor:
+        """The edge softmax and the aggregation, (N, H, F)."""
+        g = getattr(graph, "graph", graph)           # unwrap FastAggGraph
         if hasattr(graph, "gat_aggregate"):          # a sharded graph
-            out = graph.gat_aggregate(h, self.att_src, self.att_dst,
-                                      self.negative_slope)
-        elif g.format == "ell" and g.ell_cols is not None:
+            return graph.gat_aggregate(h, self.att_src, self.att_dst,
+                                       self.negative_slope)
+        if g.format == "ell" and g.ell_cols is not None:
             # the softmax and the aggregation in the ELL layout: one payload
             # gather per tier, no per-edge work for ELL-resident edges
             layout = getattr(graph, "_gat_layout", None)
@@ -107,16 +126,10 @@ class SparseGATConv(nn.Module):
                 layout = ell_gat_layout(g)
                 if graph is not g:                   # cache on the wrapper
                     graph._gat_layout = layout
-            out = ell_gat_attention(g, layout, h, a_src, a_dst,
-                                    self.negative_slope)
-        else:
-            out = segment_attention(graph, h, a_src, a_dst,
-                                    self.negative_slope)
-        if self.concat:
-            out = out.reshape(n, self.heads * self.out_channels)
-        else:
-            out = torch.mean(out, dim=1)
-        return out + self.bias if self.bias is not None else out
+            return ell_gat_attention(g, layout, h, a_src, a_dst,
+                                     self.negative_slope)
+        return segment_attention(graph, h, a_src, a_dst,
+                                 self.negative_slope)
 
     @staticmethod
     def _aggregate_messages(graph, g, coeff, h):
@@ -297,14 +310,17 @@ class SparseSAGE(SparseGCN):
 class SparseGAT(SparseGCN):
     """GAT over a SparseGraph with a per-edge softmax. Pass a graph with
     self-loops and ``normalize=None``. With ``concat`` each layer's output
-    channels are split over the ``heads``, which must divide them."""
+    channels are split over the ``heads``, which must divide them. With
+    ``mean_output_heads`` the output layer averages its heads instead
+    (``out_channels`` a head, the bias after the mean: the GAT paper's
+    output layer), whatever ``concat`` says of the hidden layers."""
 
     def __init__(self, in_channels, hidden_channels, out_channels,
                  num_layers, X, graph, heads: int = 1, concat: bool = True,
-                 **kwargs):
+                 mean_output_heads: bool = False, **kwargs):
         super().__init__(in_channels, hidden_channels, out_channels,
                          num_layers, X, graph, heads=heads, concat=concat,
-                         **kwargs)
+                         mean_output_heads=mean_output_heads, **kwargs)
         self.first_tap_static = False
         # the plans of the attention's gathers are formed here, outside the
         # curvature's torch.func transforms (a HaloAggGraph has its own)
@@ -321,6 +337,9 @@ class SparseGAT(SparseGCN):
     def init_conv(self, in_channels, out_channels, name, **kwargs):
         heads = kwargs.pop("heads")
         concat = kwargs.pop("concat")
+        if kwargs.pop("mean_output_heads") and \
+                name == f"convs.{self.num_layers - 1}":
+            concat = False
         if concat and out_channels % heads != 0:
             raise ValueError(
                 f"Ensure that the number of output channels of "

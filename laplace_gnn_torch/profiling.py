@@ -10,6 +10,13 @@ tracing system:
   ``torch.profiler.record_function("lgnn." + name)``, so the span lies in
   the profiler's own timeline, on the clock that it aligns with the
   device's activity, nested in the span it was opened in.
+* ``spanned(name, fn, *args)`` runs ``fn(*args)`` in the span ``name``
+  and, where autograd will differentiate it, lays the span
+  ``name + ".backward"`` over its backward: two identity nodes, one on
+  its output (whose backward opens the span) and one on its tensor
+  arguments (whose backward closes it). Call it only while a profiler
+  records (``tracing()``); under a ``torch.func`` transform it sets no
+  marks.
 * ``count(name, n)`` adds to a counter while a profiler records and the
   current stream is not capturing a CUDA graph; ``counters()`` is a
   snapshot of the counts, ``reset_counters()`` clears them.
@@ -101,6 +108,60 @@ def annotate(name: str) -> _Span:
 #: whether a profiler records, so spans and counters are live: one check,
 #: for a site that would do work to count
 tracing = _profiler_enabled
+
+
+class _OpenInBackward(torch.autograd.Function):
+    """Identity on a region's output; its backward opens ``span``."""
+
+    @staticmethod
+    def forward(ctx, span, x):
+        ctx.span = span
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.span.__enter__()
+        return None, g
+
+
+class _CloseInBackward(torch.autograd.Function):
+    """Identity on a region's tensor arguments; its backward, which runs
+    once the gradients of all of them are formed, closes ``span``."""
+
+    @staticmethod
+    def forward(ctx, span, *xs):
+        ctx.span = span
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.span.__exit__(None, None, None)
+        return (None,) + tuple(g if need else None for g, need in
+                               zip(gs, ctx.needs_input_grad[1:]))
+
+
+def spanned(name: str, fn: Callable, *args):
+    """``fn(*args)`` in the span ``name``. Where autograd will
+    differentiate it (grad mode on, a tensor argument that requires grad,
+    no ``torch.func`` transform active), its backward lies in the span
+    ``name + ".backward"``: the autograd engine runs the region's backward
+    nodes after the gradient of its output arrives and before the
+    gradients of its arguments leave, as nothing else that was made
+    between the two is waiting. For sites that checked ``tracing()``."""
+    pos = [i for i, a in enumerate(args)
+           if isinstance(a, torch.Tensor)]
+    marks = (torch.is_grad_enabled()
+             and not torch._C._are_functorch_transforms_active()
+             and any(args[i].requires_grad for i in pos))
+    if marks:
+        back = annotate(name + ".backward")
+        args = list(args)
+        for i, t in zip(pos, _CloseInBackward.apply(
+                back, *[args[i] for i in pos])):
+            args[i] = t
+    with annotate(name):
+        out = fn(*args)
+    return _OpenInBackward.apply(back, out) if marks else out
 
 
 def _capturing() -> bool:

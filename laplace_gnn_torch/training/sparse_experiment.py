@@ -92,7 +92,11 @@ def build_graph(args, data, device=None):
     return g
 
 
-def build_model(args, data, g, device=None):
+def build_model(args, data, g, device=None, **overrides):
+    """The CLI's model on ``g``. ``overrides`` are keyword arguments of the
+    model's constructor, added to or taking the place of the CLI's: the
+    options that have no flag (``norm``, ``res``, SparseGAT's
+    ``mean_output_heads``, ...), so the flags stay the JAX CLI's."""
     from ..models import SparseGAT, SparseGCN, SparseSAGE
 
     kw = dict(in_channels=data.num_features,
@@ -100,6 +104,7 @@ def build_model(args, data, g, device=None):
               out_channels=data.num_classes,
               num_layers=args.num_layers, X=data.x, graph=g, dropout_p=0.0,
               device=device)
+    kw.update(overrides)
     if args.model_type == "sparsegcn":
         return SparseGCN(**kw)
     if args.model_type == "sparsesage":
