@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only parallel   # build + phases 19 and 20
     python3 chip_smoke.py --only examples   # build + phase 21
     python3 chip_smoke.py --only small_eigh # build + phase 22, kernel work
+    python3 chip_smoke.py --only gat_attention  # build + phase 23
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
@@ -271,7 +272,17 @@ Phases, each fatal:
      with exactly repeated eigenvalues), the zero matrix, and a
      non-finite input that must set the failure flag. Phase 16 requires
      every step of both whole runs captured and counts the solver's
-     launches in the warm call.
+     launches in the warm call;
+ 23. (run right after phase 22) the sparse GAT attention kernel pair
+     (``csrc/gat_attention.cu``) against its plain version on the card:
+     small edge cases (split hub rows and sources, a self-loop-only node,
+     a node without edges; bf16, f32 and f64 payloads), then the
+     ``sparsegat-arxiv`` cell's shapes (H 3 of F 250 and 40, bf16), two
+     calls the same bits, one launch of each entry a call, each direction
+     timed cold beside the benchmark's bound, the plain version and the
+     composed ELL body; then a SparseGAT training step at the cell's
+     widths, whose every layer must take the kernels (``gat.kernel`` ==
+     ``gat.calls``) and whose gradient must come out the same bits twice.
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -282,7 +293,9 @@ core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2, and
 ``--only sparse`` phase 18 alone (it builds no kernel), ``--only
 parallel`` phases 1 (``core_spmm.cu`` and ``flash_attention.cu``), 19
 and 20, ``--only examples`` phases 1 (``flash_attention.cu``) and 21,
-``--only small_eigh`` phases 1 (``small_eigh.cu``) and 22.
+``--only small_eigh`` phases 1 (``small_eigh.cu``) and 22, ``--only
+gat_attention`` phases 1 (``gat_attention.cu``) and 23 (last line
+``{"partial": ["gat_attention"]}``).
 Exits
 non-zero, with no result, when there is no CUDA device or the package is
 not beside it.
@@ -3118,6 +3131,239 @@ def phase_small_eigh(torch, linalg, peaks):
     return rows, checks
 
 
+# -- phase 23: the sparse GAT attention kernels (csrc/gat_attention.cu) ------
+
+# the arxiv cell's attention layers: (heads, head width), bf16 payload
+GAT_ATT_SHAPES = ((3, 250), (3, 40))
+GAT_ATT_SLOPE = 0.2
+# kernel against plain, both on the card: the rounding of f32 sums taken in
+# another order (bf16 payload: the plain version rounds the same rows)
+GAT_ATT_TOL = {"bfloat16": 1e-4, "float32": 1e-4, "float64": 1e-11}
+
+
+def _gat_att_inputs(torch, n, heads, width, seed, dtype=None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = dtype or torch.float32
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    return draw(n, heads, width), draw(n, heads), draw(n, heads), \
+        draw(n, heads, width)
+
+
+def _gat_att_check(torch, ga, csr, h, a_src, a_dst, g, payload, label):
+    """The kernel pair against the plain version on the card: forward
+    (out, lse) and backward (dh, da_src, da_dst) relative gaps, each call
+    run twice for the same bits. Raises past GAT_ATT_TOL."""
+    cd = ga.sums_dtype(payload)
+    a_s, a_d = a_src.to(cd), a_dst.to(cd)
+    out, lse, xp = ga.forward_kernel(csr, h, a_s, a_d, GAT_ATT_SLOPE,
+                                     payload)
+    ref, ref_lse, x = ga.forward_plain(csr, h, a_s, a_d, GAT_ATT_SLOPE,
+                                       payload)
+    grads = ga.backward_kernel(csr, xp, a_s, a_d, out, lse, g,
+                               GAT_ATT_SLOPE)
+    ref_grads = ga.backward_plain(csr, x, a_s, a_d, ref, ref_lse, g,
+                                  GAT_ATT_SLOPE)
+    gaps = {"out": _rel(out, ref), "lse": _rel(lse, ref_lse)}
+    for name, a, b in zip(("dh", "da_src", "da_dst"), grads, ref_grads):
+        gaps[name] = _rel(a, b)
+    again = ga.forward_kernel(csr, h, a_s, a_d, GAT_ATT_SLOPE, payload)
+    grads2 = ga.backward_kernel(csr, xp, a_s, a_d, out, lse, g,
+                                GAT_ATT_SLOPE)
+    same = (torch.equal(again[0], out) and torch.equal(again[1], lse)
+            and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+    tol = GAT_ATT_TOL[str(payload).split(".")[-1]]
+    if max(gaps.values()) > tol or not same:
+        raise AssertionError(f"gat_attention {label}: kernel vs plain "
+                             f"{gaps} (tolerance {tol}), same bits {same}")
+    return {"label": label, "gaps": gaps, "same_bits": same}
+
+
+def _gat_att_small(torch, ga):
+    """Edge cases on a small graph: a hub row and a hub source longer than
+    a chunk (three chunks each), a node with only its self-loop, a node
+    with no edge at all; every payload, head widths 1, 5, 40 and 250, 1
+    and 8 heads (f64: 2 x 250, its widest row); then the raises on an f16
+    payload and on CPU tensors."""
+    n = 300
+    src = torch.cat([torch.arange(1, n - 1), torch.randint(
+        0, n - 1, (900,), generator=torch.Generator().manual_seed(0)),
+        torch.zeros(150, dtype=torch.long), torch.arange(n - 1)])
+    dst = torch.cat([torch.zeros(n - 2, dtype=torch.long), torch.randint(
+        0, n - 1, (900,), generator=torch.Generator().manual_seed(1)),
+        torch.arange(1, 151), torch.arange(n - 1)])
+    keep = (src != 7) & (dst != 7) | (src == dst)
+    src, dst = src[keep], dst[keep]
+    order = torch.argsort(dst, stable=True)
+    csr = ga.attention_csr(src[order].cuda(), dst[order].cuda(), n)
+    if not (csr.fwd.merges.shape[0] and csr.bwd.merges.shape[0]):
+        raise AssertionError("gat_attention: the small graph splits no row")
+    rows = []
+    for payload in (torch.bfloat16, torch.float32, torch.float64):
+        # the widest row each payload takes: 4096 bytes (f64: 2 x 250)
+        widest = (2, 250) if payload == torch.float64 else (3, 250)
+        for heads, width in ((3, 1), (3, 5), (1, 40), (8, 40), widest):
+            dt = torch.float64 if payload == torch.float64 else None
+            h, a_s, a_d, g = _gat_att_inputs(torch, n, heads, width,
+                                             seed=heads * width, dtype=dt)
+            rows.append(_gat_att_check(
+                torch, ga, csr, h, a_s, a_d, g, payload,
+                f"small {str(payload)[6:]} H={heads} F={width}"))
+    h, a_s, a_d, _ = _gat_att_inputs(torch, n, 3, 8, seed=0)
+    for bad, err in (((csr, h, a_s, a_d, GAT_ATT_SLOPE, torch.float16),
+                      TypeError),
+                     ((csr, h.cpu(), a_s, a_d, GAT_ATT_SLOPE,
+                       torch.float32), ValueError)):
+        try:
+            ga.forward_kernel(*bad)
+        except err:
+            continue
+        raise AssertionError(f"gat_attention: no {err.__name__} on "
+                             f"{bad[-1]} / {bad[1].device}")
+    return rows
+
+
+def phase_gat_attention(torch, np, ga, peaks):
+    """The sparse GAT attention kernel pair (csrc/gat_attention.cu) held to
+    its plain version on the card: the small edge cases, then the
+    ``sparsegat-arxiv`` cell's shapes (ogbn-arxiv-shaped graph with a
+    self-loop on every node, 2.34 M stored edges; H 3 of F 250 and 40,
+    bf16 payload): forward and backward gaps, two runs the same bits, one
+    launch of each entry a call, and each direction timed cold (the
+    wrapper's call: pack, pass, merge) beside the benchmark's bound
+    (``benchmark/benchlib/gat_counts.py``: each edge's bf16 row and 8-byte
+    index, the f32 output and destination scores; the backward twice the
+    forward), the plain version's time and the composed ELL body's. No
+    library computes this function. Then one SparseGAT training step at
+    the cell's widths: every layer through the kernels (``gat.kernel`` ==
+    ``gat.calls``, ``gat.composed`` 0), and two identical steps give the
+    same gradient bits."""
+    import dataclasses
+    from laplace_gnn_torch import profiling
+    from laplace_gnn_torch.graph import container as C
+    from laplace_gnn_torch.models import SparseGAT
+    bw, _ = peaks
+    out = {"small": _gat_att_small(torch, ga)}
+    print(f"gat_attention small: {len(out['small'])} cases within "
+          f"tolerance, the same bits twice, f16 and CPU raised", flush=True)
+
+    x, y, ei = arxiv_like(np)
+    g = C.sparse_from_edge_index(ei, ARXIV_N, normalize=None, fmt="ell",
+                                 device="cuda")
+    g_bf = dataclasses.replace(g, agg_dtype="bfloat16")
+    t0 = time.perf_counter()
+    layout = C.ell_gat_layout(g)
+    torch.cuda.synchronize()
+    csr = layout["csr"]
+    E, n = g.n_edges, g.n_nodes
+    out["graph"] = {"N": n, "E": E, "layout_s": time.perf_counter() - t0,
+                    "fwd_items": csr.fwd.items.shape[0],
+                    "fwd_split_rows": csr.fwd.merges.shape[0],
+                    "bwd_split_sources": csr.bwd.merges.shape[0]}
+    print(f"gat_attention graph: {out['graph']}", flush=True)
+    rows = []
+    bf = torch.bfloat16
+    for heads, width in GAT_ATT_SHAPES:
+        h, a_s, a_d, gout = _gat_att_inputs(torch, n, heads, width, seed=23)
+        check = _gat_att_check(torch, ga, csr, h, a_s, a_d, gout, bf,
+                               f"arxiv H={heads} F={width}")
+        f0, b0 = ga.gat_fwd.launches, ga.gat_bwd.launches
+        hh = h.clone().requires_grad_(True)
+        o = ga.gat_attention(csr, hh, a_s, a_d, GAT_ATT_SLOPE, bf)
+        torch.autograd.grad(o, hh, gout)
+        launches = (ga.gat_fwd.launches - f0, ga.gat_bwd.launches - b0)
+        if launches != (1, 1):
+            raise AssertionError(f"gat_attention: one call launched "
+                                 f"{launches} (forward, backward)")
+        o_k, lse_k, xp = ga.forward_kernel(csr, h, a_s, a_d, GAT_ATT_SLOPE,
+                                           bf)
+        fwd_ms = cold_ms(torch, lambda: ga.forward_kernel(
+            csr, h, a_s, a_d, GAT_ATT_SLOPE, bf))
+        bwd_ms = cold_ms(torch, lambda: ga.backward_kernel(
+            csr, xp, a_s, a_d, o_k, lse_k, gout, GAT_ATT_SLOPE))
+        kernels = profile_step(torch, lambda: ga.backward_kernel(
+            csr, xp, a_s, a_d, o_k, lse_k, gout, GAT_ATT_SLOPE), top=6)
+        kernels_fwd = profile_step(torch, lambda: ga.forward_kernel(
+            csr, h, a_s, a_d, GAT_ATT_SLOPE, bf), top=6)
+        o_p, lse_p, x_p = ga.forward_plain(csr, h, a_s, a_d, GAT_ATT_SLOPE,
+                                           bf)
+        plain_fwd = cold_ms(torch, lambda: ga.forward_plain(
+            csr, h, a_s, a_d, GAT_ATT_SLOPE, bf), reps=5)
+        plain_bwd = cold_ms(torch, lambda: ga.backward_plain(
+            csr, x_p, a_s, a_d, o_p, lse_p, gout, GAT_ATT_SLOPE), reps=5)
+        del o_p, lse_p, x_p
+
+        def composed():
+            hc = h.clone().requires_grad_(True)
+            oc = C._ell_gat_attention_composed(g_bf, layout, hc, a_s, a_d,
+                                               GAT_ATT_SLOPE)
+            torch.autograd.grad(oc, hc, gout)
+        composed_ms = cold_ms(torch, composed, reps=5)
+        fwd_bytes = E * ((heads * width + heads) * 2 + 8) \
+            + n * (heads * width + heads) * 4
+        row = {"heads": heads, "width": width, "fwd_ms": fwd_ms,
+               "bwd_ms": bwd_ms, "bound_fwd_ms": fwd_bytes / bw * 1e3,
+               "bound_bwd_ms": 2 * fwd_bytes / bw * 1e3,
+               "bound_by": "bytes", "plain_fwd_ms": plain_fwd,
+               "plain_bwd_ms": plain_bwd, "composed_fwd_bwd_ms": composed_ms,
+               "library_ms": None, "launches": list(launches),
+               "kernels_fwd": kernels_fwd["top"],
+               "kernels_bwd": kernels["top"], "check": check,
+               "card_after": card_state()}
+        row["roofline_pct"] = 100 * (row["bound_fwd_ms"]
+                                     + row["bound_bwd_ms"]) / (fwd_ms
+                                                               + bwd_ms)
+        rows.append(row)
+        print("gat_attention " + json.dumps(
+            {k: v for k, v in row.items()
+             if k not in ("kernels_fwd", "kernels_bwd")}), flush=True)
+        print("gat_attention kernels: fwd "
+              + json.dumps(kernels_fwd["top"]) + " bwd "
+              + json.dumps(kernels["top"]), flush=True)
+        del h, a_s, a_d, gout, o_k, lse_k, xp
+        torch.cuda.empty_cache()
+    out["rows"] = rows
+
+    # one training step of the cell's model, the route's counters, and two
+    # identical steps to the same bits
+    torch.cuda.reset_peak_memory_stats()
+    model = SparseGAT(ARXIV_F, 750, ARXIV_C, 3, x, g_bf, heads=3,
+                      dropout_p=0.0, device="cuda", norm="batch", res=True,
+                      mean_output_heads=True)
+    params = {k: v.requires_grad_(True) for k, v in model.init().items()}
+    yt = torch.as_tensor(y, device="cuda")
+    idx = torch.arange(0, n, 5, device="cuda")
+
+    def step():
+        loss = torch.nn.functional.cross_entropy(model.apply(params, idx),
+                                                 yt[idx])
+        return torch.autograd.grad(loss, list(params.values()))
+    first = step()
+    profiling.reset_counters()
+    f0, b0 = ga.gat_fwd.launches, ga.gat_bwd.launches
+    with torch.profiler.profile():
+        second = step()
+    counts = profiling.counters()
+    route = {"gat.calls": counts.get("gat.calls", 0),
+             "gat.kernel": counts.get("gat.kernel", 0),
+             "gat.composed": counts.get("gat.composed", 0),
+             "fwd_launches": ga.gat_fwd.launches - f0,
+             "bwd_launches": ga.gat_bwd.launches - b0}
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    t_step = cold_ms(torch, step, reps=5)
+    out["train_step"] = {"route": route, "same_bits": same,
+                         "step_ms_cold": t_step,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"gat_attention train step: {out['train_step']}", flush=True)
+    if (route["gat.kernel"] != route["gat.calls"] or route["gat.calls"] != 3
+            or route["gat.composed"] or route["fwd_launches"] != 3
+            or route["bwd_launches"] != 3 or not same):
+        raise AssertionError(f"gat_attention: the training step's route "
+                             f"{route}, same bits {same}")
+    return out
+
+
 def _trace_gap(a, b) -> float:
     """Largest |a - b| / |b| over two traces."""
     return max(abs(float(x) - float(z)) / max(abs(float(z)), 1e-30)
@@ -4811,7 +5057,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["matmul", "core_spmm", "flash",
                                            "sparse", "parallel", "examples",
-                                           "small_eigh"],
+                                           "small_eigh", "gat_attention"],
                         help="build and run this kernel's phase alone; "
                              "prints no ok line")
     args = parser.parse_args(argv)
@@ -4826,6 +5072,7 @@ def main(argv=None) -> int:
     from laplace_gnn_torch.ops import cuda_build
     from laplace_gnn_torch.ops import flash_attention as fa
     from laplace_gnn_torch.ops import fused_spmm as fs
+    from laplace_gnn_torch.ops import gat_attention as ga
     from laplace_gnn_torch.ops import linalg
     from laplace_gnn_torch.ops import matmul as mm
 
@@ -4858,6 +5105,19 @@ def main(argv=None) -> int:
                        "small_eigh": rows, "checks": checks}, f, indent=1)
         print(card, flush=True)
         print(json.dumps({"partial": ["small_eigh"]}), flush=True)
+        return 0
+    if args.only == "gat_attention":
+        build_kernels(cuda_build, out_dir, ["gat_attention"])
+        t0 = time.perf_counter()
+        gat_att = phase_gat_attention(torch, np, ga, peaks)
+        print(f"phase 23 phase_gat_attention: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        with open(os.path.join(out_dir, "chip_smoke_gat_attention.json"),
+                  "w") as f:
+            json.dump({"card": card, "kind": kind, "peaks": peak_name,
+                       "gat_attention": gat_att}, f, indent=1, default=str)
+        print(card, flush=True)
+        print(json.dumps({"partial": ["gat_attention"]}), flush=True)
         return 0
     if args.only == "core_spmm":
         build_kernels(cuda_build, out_dir, ["core_spmm"])
@@ -4940,6 +5200,8 @@ def main(argv=None) -> int:
     core_checks = phase("2", phase_core_checks, torch, fs)
     eig_rows, eig_checks = phase("22", phase_small_eigh, torch, linalg,
                                  peaks)
+    gat_att = phase("23", phase_gat_attention, torch, np, ga, peaks)
+    torch.cuda.empty_cache()
     small = phase("3", phase_small_reference, torch, np)
     run, stegcn_state = phase("3", phase_trainer, torch, np, card)
 
@@ -5053,9 +5315,26 @@ def main(argv=None) -> int:
         "ms": r["ms"], "ms_7": eig_rows[1]["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"]})
+    # the sparse GAT attention replaces no Pallas kernel (the JAX package's
+    # ELL attention is plain XLA); its row is the hidden layer's shape
+    r = gat_att["rows"][0]
+    kernels.append({
+        "name": "gat_fwd + gat_bwd", "route": "cuda",
+        "source": ga.gat_fwd.source,
+        "replaces": "none: the JAX package's ELL GAT attention is plain XLA",
+        "launches": gat_att["train_step"]["route"],
+        "max_rel_err": max(max(c["gaps"].values()) for c in
+                           gat_att["small"] + [x["check"] for x in
+                                               gat_att["rows"]]),
+        "ms": r["fwd_ms"] + r["bwd_ms"], "fwd_ms": r["fwd_ms"],
+        "bwd_ms": r["bwd_ms"],
+        "plain_ms": r["plain_fwd_ms"] + r["plain_bwd_ms"],
+        "bound_ms": r["bound_fwd_ms"] + r["bound_bwd_ms"],
+        "bound_by": r["bound_by"], "library_ms": None})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "peaks": peak_name,
                    "small_eigh": eig_rows, "small_eigh_checks": eig_checks,
+                   "gat_attention": gat_att,
                    "core_spmm": rows, "core_spmm_checks": core_checks,
                    "trainer": run, "small": small,
                    "flash": flash_rows, "flash_checks": flash_checks,

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from .. import native
 from ..device import resolve_device
+from ..ops.gat_attention import attention_csr, gat_attention
 from ..profiling import annotate, count, tracing
 
 
@@ -590,8 +591,13 @@ def _tier_plan(cols: torch.Tensor, mask: torch.Tensor, n: int) -> Segments:
 
 def ell_gat_layout(g: SparseGraph) -> dict:
     """Bool validity masks of each ELL tier for :func:`ell_gat_attention`,
-    from the same packing as :func:`ell_edge_slots`, and each tier's
-    gather plan."""
+    from the same packing as :func:`ell_edge_slots`, each tier's gather
+    plan (the remainder's are the graph's own, formed here), and the CSR
+    layout of the kernels' route (``csr``:
+    :func:`~laplace_gnn_torch.ops.gat_attention.attention_csr` of the
+    dst-sorted edges). Form it outside ``torch.func`` transforms."""
+    if g.has_remainder():
+        g.segments("rem_src")
     slots = ell_edge_slots(g)
     n, K0 = g.ell_cols.shape
     dev = g.device
@@ -606,21 +612,47 @@ def ell_gat_layout(g: SparseGraph) -> dict:
     return {"mask0": mask0, "level_masks": tuple(level_masks),
             "plan0": _tier_plan(g.ell_cols, mask0, n),
             "level_plans": tuple(_tier_plan(c, m, n) for (_r, c, _v), m
-                                 in zip(g.ell_levels, level_masks))}
+                                 in zip(g.ell_levels, level_masks)),
+            "csr": attention_csr(g.src, g.dst, n)}
 
 
 def ell_gat_attention(g: SparseGraph, layout: dict, h: torch.Tensor,
                       a_src: torch.Tensor, a_dst: torch.Tensor,
                       negative_slope: float) -> torch.Tensor:
-    """GAT edge softmax and aggregation in the ELL layout:
+    """GAT edge softmax and aggregation of an ELL graph:
 
         out[i] = sum_{e: dst_e = i}
                  softmax_e(leaky_relu(a_src[src_e] + a_dst[i])) h[src_e]
 
-    ``a_src`` rides on the feature rows, so one (R, K, H*F + H) gather per
-    tier fetches the messages and the score material; the masked softmax
-    runs over the padded axis (pads score -inf). The levels join through
-    adds on their unique rows, the remainder through segment ops.
+    Outside ``torch.func`` transforms it is
+    :func:`~laplace_gnn_torch.ops.gat_attention.gat_attention` over the
+    layout's CSR (the hand-written kernels on the card, their plain version
+    on the CPU), with ``g.agg_dtype`` as the payload; under a transform
+    (the mixed KFAC's vmapped pullbacks, Hutchinson probes, ``jvp``
+    diagonals) the composed body :func:`_ell_gat_attention_composed`,
+    which every transform differentiates. Counts ``gat.kernel`` or
+    ``gat.composed``."""
+    if torch._C._are_functorch_transforms_active():
+        if tracing():
+            count("gat.composed")
+        return _ell_gat_attention_composed(g, layout, h, a_src, a_dst,
+                                           negative_slope)
+    if tracing():
+        count("gat.kernel")
+    return gat_attention(layout["csr"], h, a_src, a_dst, negative_slope,
+                         _torch_dtype(g.agg_dtype))
+
+
+def _ell_gat_attention_composed(g: SparseGraph, layout: dict,
+                                h: torch.Tensor, a_src: torch.Tensor,
+                                a_dst: torch.Tensor,
+                                negative_slope: float) -> torch.Tensor:
+    """:func:`ell_gat_attention` composed of PyTorch operations in the ELL
+    layout. ``a_src`` rides on the feature rows, so one (R, K, H*F + H)
+    gather per tier fetches the messages and the score material; the
+    masked softmax runs over the padded axis (pads score -inf). The levels
+    join through adds on their unique rows, the remainder through segment
+    ops.
     ``g.agg_dtype`` (bf16) applies to the gathered payload; the scores,
     exponentials and denominators run in float32, as in the JAX package.
     The row maxima are a shift that cancels in the softmax, so they carry

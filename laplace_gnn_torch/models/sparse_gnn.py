@@ -329,8 +329,6 @@ class SparseGAT(SparseGCN):
             pass
         elif g.format == "ell" and g.ell_cols is not None:
             self.graph._gat_layout = ell_gat_layout(g)
-            if g.has_remainder():
-                g.segments("rem_src")
         else:
             g.segments("src")
 

@@ -1,5 +1,6 @@
 """The GAT attention's spans and counters on the CPU, on both attention
-paths (ELL, and the segment path with ``--ell 0``): under a profiler each
+paths (ELL, whose attention is one Function outside ``torch.func``
+transforms, and the segment path with ``--ell 0``): under a profiler each
 layer's edge softmax and aggregation lies in the span
 ``lgnn.gat.attention`` and its backward in ``lgnn.gat.attention.backward``
 (the attention's backward nodes inside it, the Linear's outside), and
@@ -78,16 +79,23 @@ def test_an_epoch_lays_both_spans_and_counts_the_layers(ell):
     assert got["gat.edge_columns"] == g.n_edges * sum(widths)
     by = _by_name(prof)
     assert len(by[SPAN]) == LAYERS and len(by[BACK]) == LAYERS
-    # the forward's gathers lie in the forward spans
-    gathers = by["aten::index_select"]
-    assert gathers and any(_within(e, by[SPAN]) for e in gathers)
+    # the forward's work lies in the forward spans: on the ELL graph the
+    # attention's Function, on the segment path its gathers
+    if ell:
+        calls = by["_GatAttention"]
+        assert len(calls) == LAYERS
+        assert all(_within(e, by[SPAN]) for e in calls)
+        back_nodes = ("_GatAttentionBackward",)
+    else:
+        gathers = by["aten::index_select"]
+        assert gathers and any(_within(e, by[SPAN]) for e in gathers)
+        back_nodes = ("_GatherFnBackward", "_SegmentSumFnBackward")
     # the attention's backward nodes lie in the backward spans, the
     # Linears' (weight gradients of the fc and residual layers) outside
     nodes = [e for name, evs in by.items()
              if name.startswith("autograd::engine::evaluate_function: ")
              for e in evs]
-    inner = [e for e in nodes if "_GatherFnBackward" in e.name
-             or "_SegmentSumFnBackward" in e.name]
+    inner = [e for e in nodes if any(b in e.name for b in back_nodes)]
     linear = [e for e in nodes if "MmBackward" in e.name]
     assert inner and all(_within(e, by[BACK]) for e in inner)
     assert linear and not any(_within(e, by[BACK]) for e in linear)
