@@ -36,8 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .cuda_build import load
-from .launches import LaunchCounter
+from .cuda_build import Kernel, route, sm_count
 
 NEG_BIG = -1e30          # floor of the running max, as in the TPU kernel
 ROW_BLOCK = 256          # target rows per block of the plain versions
@@ -148,13 +147,9 @@ def flash_bwd_reference(alpha_src, alpha_dst, adj, h, g, out, m, l,
 
 
 def _check(name, alpha_src, alpha_dst, adj, h, extra=()):
-    """Validate what the CUDA kernels take; returns (n, R, H, F)."""
+    """Validate what the CUDA kernels take, on one CUDA device; returns
+    (n, R, H, F)."""
     tensors = (alpha_src, alpha_dst, adj, h) + tuple(extra)
-    dev = h.device
-    if not all(t.is_cuda and t.device == dev for t in tensors):
-        raise ValueError(f"{name}: tensors on "
-                         f"{sorted({str(t.device) for t in tensors})}; all "
-                         "must be on one CUDA device or all on the CPU")
     for t in (alpha_src, alpha_dst, h) + tuple(extra):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: scores, values and gradients must be "
@@ -283,68 +278,35 @@ def bwd_workspace(p: Plan, n: int, r: int, heads: int, f: int) -> int:
     return floats
 
 
-class _FlashKernel(LaunchCounter):
-    """Shared part of the two wrappers: the library entry, the card's SM
-    count and a launch counter that only the launch itself increments."""
-
-    source = "laplace_gnn_torch/csrc/flash_attention.cu"
-    symbol = ""
-    n_ptr = 0
-    backward = False
-
-    def __init__(self):
-        super().__init__()
-        self._sms: dict = {}
-        self._fn = None
-
-    def bind(self, lib: ctypes.CDLL) -> None:
-        """Launch through ``lib``'s entry point (a build of this file)."""
-        fn = getattr(lib, self.symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * self.n_ptr + [ctypes.c_int] * 5
-                       + [ctypes.c_float] + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        self._fn = fn
-
-    def _entry(self):
-        if self._fn is None:
-            self.bind(load("flash_attention"))
-        return self._fn
-
-    def plan(self, adj, n, R, H, F) -> Plan:
-        dev = adj.device
-        if dev not in self._sms:
-            self._sms[dev] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
-        return plan(n, R, H, F, adj.dtype, adj.data_ptr(), self._sms[dev],
-                    self.backward)
-
-    def _run(self, ptrs, adj, n, R, H, F, slope, cd, device, p: Plan):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = self._entry()(*ptrs, int(adj.dtype == torch.int8), n, R, H, F,
-                           float(slope), int(cd is not None), p.block,
-                           p.split, p.per_split, p.vec, stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.name} launch failed with CUDA error "
-                               f"{rc}")
-        self._counted()
+def _argtypes(n_ptr: int) -> list:
+    """The entry points' C signature: ``n_ptr`` tensors, then
+    :func:`_scalars`, then the stream."""
+    return ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_float]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
-class FlashForwardKernel(_FlashKernel):
+def _scalars(adj, n, R, H, F, slope, cd, p: Plan, device) -> tuple:
+    """The arguments after the tensors, in both entry points' order."""
+    return (int(adj.dtype == torch.int8), n, R, H, F, float(slope),
+            int(cd is not None), p.block, p.split, p.per_split, p.vec,
+            torch.cuda.current_stream(device).cuda_stream)
+
+
+class FlashForwardKernel(Kernel):
     """Wrapper of the forward kernel ``flash_fwd_kernel``: one launch a
     call. With a split source axis the S partials of each (row, head) are
     merged in rank order inside one thread-block cluster, so every output
     is written once (``torch.empty``, no fill) and two calls give the same
     bits."""
 
-    name = "flash_fwd"
-    symbol = "flash_fwd_launch"
-    n_ptr = 7
+    def __init__(self):
+        super().__init__("flash_fwd", "flash_attention", "flash_fwd_launch",
+                         _argtypes(7))
 
     def __call__(self, alpha_src, alpha_dst, adj, h, negative_slope=0.2,
                  attn_dtype=None):
         cd = _attn_dtype(attn_dtype)
-        if all(t.device.type == "cpu" for t in (alpha_src, alpha_dst, adj, h)):
+        if route(self.name, alpha_src, alpha_dst, adj, h) == "plain":
             return flash_fwd_reference(alpha_src, alpha_dst, adj, h,
                                        negative_slope, cd)
         n, R, H, F = _check(self.name, alpha_src, alpha_dst, adj, h)
@@ -352,14 +314,16 @@ class FlashForwardKernel(_FlashKernel):
         m = torch.empty((H, R), dtype=h.dtype, device=h.device)
         l = torch.empty((H, R), dtype=h.dtype, device=h.device)
         if R:
-            p = self.plan(adj, n, R, H, F)
-            self._run([t.data_ptr() for t in (alpha_src, alpha_dst, adj, h,
-                                              out, m, l)],
-                      adj, n, R, H, F, negative_slope, cd, h.device, p)
+            p = plan(n, R, H, F, adj.dtype, adj.data_ptr(),
+                     sm_count(adj.device), backward=False)
+            self.launch(*(t.data_ptr() for t in (alpha_src, alpha_dst, adj,
+                                                  h, out, m, l)),
+                        *_scalars(adj, n, R, H, F, negative_slope, cd, p,
+                                  h.device))
         return out, m, l
 
 
-class FlashBackwardKernel(_FlashKernel):
+class FlashBackwardKernel(Kernel):
     """Wrapper of the backward kernel ``flash_bwd_kernel``. ``D`` and
     ``linv`` are formed here, in PyTorch, as the JAX package forms them
     outside Pallas. It is bound by reading the adjacency once, like the
@@ -370,16 +334,15 @@ class FlashBackwardKernel(_FlashKernel):
     launch is two device launches; every output and the workspace come
     from ``torch.empty``, and two calls give the same bits."""
 
-    name = "flash_bwd"
-    symbol = "flash_bwd_launch"
-    n_ptr = 12
-    backward = True
+    def __init__(self):
+        super().__init__("flash_bwd", "flash_attention", "flash_bwd_launch",
+                         _argtypes(12))
 
     def __call__(self, alpha_src, alpha_dst, adj, h, g, out, m, l,
                  negative_slope=0.2, attn_dtype=None):
         cd = _attn_dtype(attn_dtype)
-        tensors = (alpha_src, alpha_dst, adj, h, g, out, m, l)
-        if all(t.device.type == "cpu" for t in tensors):
+        if route(self.name, alpha_src, alpha_dst, adj, h, g, out, m,
+                 l) == "plain":
             return flash_bwd_reference(alpha_src, alpha_dst, adj, h, g, out,
                                        m, l, negative_slope, cd)
         n, R, H, F = _check(self.name, alpha_src, alpha_dst, adj, h,
@@ -393,13 +356,15 @@ class FlashBackwardKernel(_FlashKernel):
         g_adst = torch.empty_like(alpha_dst)
         g_h = torch.empty_like(h)
         if R:
-            p = self.plan(adj, n, R, H, F)
+            p = plan(n, R, H, F, adj.dtype, adj.data_ptr(),
+                     sm_count(adj.device), backward=True)
             ws = torch.empty(bwd_workspace(p, n, R, H, F), dtype=h.dtype,
                              device=h.device)
-            self._run([t.data_ptr() for t in (alpha_src, alpha_dst, adj, h,
-                                              g, m, linv, D, g_asrc, g_adst,
-                                              g_h, ws)],
-                      adj, n, R, H, F, negative_slope, cd, h.device, p)
+            self.launch(*(t.data_ptr() for t in (alpha_src, alpha_dst, adj,
+                                                  h, g, m, linv, D, g_asrc,
+                                                  g_adst, g_h, ws)),
+                        *_scalars(adj, n, R, H, F, negative_slope, cd, p,
+                                  h.device))
         else:
             g_asrc.zero_()
             g_h.zero_()

@@ -33,8 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .cuda_build import load
-from .launches import LaunchCounter
+from .cuda_build import Kernel, route, sm_count
 
 BM = 128                  # the kernel's row tile (rows of out)
 SKINNY_BN = (8, 32, 64)   # column tiles for d <= 64: t's columns in one tile
@@ -127,37 +126,21 @@ def plan(n: int, d: int, a_dtype: torch.dtype, t_dtype: torch.dtype,
                 vec_a=vec_a, vec_t=vec_t)
 
 
-class CoreKernel(LaunchCounter):
-    """Wrapper of the ``core_spmm`` CUDA kernel with a launch counter."""
-
-    name = "core_spmm"
-    source = "laplace_gnn_torch/csrc/core_spmm.cu"
+class CoreKernel(Kernel):
+    """Wrapper of the ``core_spmm`` CUDA kernel."""
 
     def __init__(self):
-        super().__init__()
-        self._sms: dict = {}
-        self._fn = None
-
-    def _entry(self):
-        """The C entry point, built and typed on first use."""
-        if self._fn is None:
-            fn = load("core_spmm").core_spmm_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                            ctypes.c_int, ctypes.c_void_p]
-                           + [ctypes.c_int] * 7 + [ctypes.c_float]
-                           + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-            self._fn = fn
-        return self._fn
+        super().__init__("core_spmm", "core_spmm", "core_spmm_launch",
+                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7
+                         + [ctypes.c_float] + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p])
 
     def __call__(self, adj: torch.Tensor, t: torch.Tensor,
                  threshold: float = 0.5, binarize: bool = True,
                  transpose: bool = False) -> torch.Tensor:
-        if adj.device.type == "cpu" and t.device.type == "cpu":
+        if route("core", adj, t) == "plain":
             return core_reference(adj, t, threshold, binarize, transpose)
-        if not (adj.is_cuda and t.is_cuda and adj.device == t.device):
-            raise ValueError(f"core: adj on {adj.device} and t on {t.device};"
-                             " both must be on one CUDA device or the CPU")
         return self._launch(adj, t, threshold, binarize, transpose)
 
     def _launch(self, adj, t, threshold, binarize, transpose):
@@ -179,20 +162,14 @@ class CoreKernel(LaunchCounter):
         out = torch.empty((n, d), dtype=t.dtype, device=t.device)
         if n == 0 or d == 0:
             return out
-        if t.device not in self._sms:
-            self._sms[t.device] = torch.cuda.get_device_properties(
-                t.device).multi_processor_count
         p = plan(n, d, adj.dtype, t.dtype, adj.data_ptr(), t.data_ptr(),
-                 self._sms[t.device])
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = self._entry()(
+                 sm_count(t.device))
+        self.launch(
             adj.data_ptr(), int(adj.dtype == torch.int8), t.data_ptr(),
             int(t.dtype == torch.bfloat16), out.data_ptr(), n, d, p.tile[1],
             p.split, p.k_per_split, p.vec_a, p.vec_t, float(threshold),
-            int(binarize), int(transpose), stream)
-        if rc != 0:
-            raise RuntimeError(f"core_spmm launch failed with CUDA error {rc}")
-        self._counted()
+            int(binarize), int(transpose),
+            torch.cuda.current_stream(t.device).cuda_stream)
         return out
 
 

@@ -35,8 +35,7 @@ from dataclasses import dataclass
 import torch
 from torch.autograd.function import once_differentiable
 
-from .cuda_build import load
-from .launches import LaunchCounter
+from .cuda_build import Kernel, kernel_only, route
 
 CHUNK = 64           # csrc/gat_attention.cu: most edges a work item
 MAX_HEADS = 8        # ... heads
@@ -188,54 +187,23 @@ def backward_plain(csr: AttentionCsr, x: torch.Tensor, a_src: torch.Tensor,
 
 # -- the kernels -------------------------------------------------------------
 
-class GatKernel(LaunchCounter):
-    """Wrapper of one entry point of ``csrc/gat_attention.cu`` with a
-    launch counter: ``gat_fwd`` (pack the payload, the rows' pass, the
-    split rows' merge) or ``gat_bwd`` (pack the output gradient and D,
-    the sources' pass, their merge, the destinations' sums). A launch is
-    one call of the entry point, 2 to 4 kernels on the current stream."""
-
-    source = "laplace_gnn_torch/csrc/gat_attention.cu"
-
-    def __init__(self, name: str, argtypes: list):
-        super().__init__()
-        self.name = name
-        self._argtypes = argtypes
-        self._fn = None
-
-    def entry(self):
-        """The C entry point, built and typed on first use."""
-        if self._fn is None:
-            fn = getattr(load("gat_attention"), f"{self.name}_launch")
-            fn.restype = ctypes.c_int
-            fn.argtypes = self._argtypes
-            self._fn = fn
-        return self._fn
-
-    def launch(self, *args) -> None:
-        rc = self.entry()(*args)
-        if rc != 0:
-            raise RuntimeError(f"{self.name} launch failed with CUDA error "
-                               f"{rc}")
-        self._counted()
-
-
+# Each entry point is one launch, 2 to 4 kernels on the current stream:
+# gat_fwd packs the payload, runs the rows' pass and merges the split
+# rows; gat_bwd packs the output gradient and D, runs the sources' pass,
+# merges them and sums the destinations.
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-gat_fwd = GatKernel("gat_fwd", [_I, _P, _P, _I] + [_P] * 4 + [_I, _P]
-                    + [_I] * 5 + [_D] + [_P] * 5)
-gat_bwd = GatKernel("gat_bwd", [_I] + [_P] * 12 + [_I, _P] + [_I] * 5
-                    + [_D] + [_P] * 7)
+gat_fwd = Kernel("gat_fwd", "gat_attention", "gat_fwd_launch",
+                 [_I, _P, _P, _I] + [_P] * 4 + [_I, _P] + [_I] * 5 + [_D]
+                 + [_P] * 5)
+gat_bwd = Kernel("gat_bwd", "gat_attention", "gat_bwd_launch",
+                 [_I] + [_P] * 12 + [_I, _P] + [_I] * 5 + [_D] + [_P] * 7)
 
 
 def _check(csr: AttentionCsr, h: torch.Tensor, payload: torch.dtype,
            *scores: torch.Tensor) -> int:
     """The payload's code; raises on what the kernels do not take. ``h``
     is (N, H, F), each of ``scores`` (N, H)."""
-    for t in (h,) + scores:
-        if not t.is_cuda or csr.device != t.device:
-            raise ValueError(f"gat_attention kernels: CUDA tensors on the "
-                             f"layout's device ({csr.device}), got "
-                             f"{t.device}")
+    kernel_only("gat_attention kernels", csr.src, h, *scores)
     if payload not in _PAYLOADS:
         raise TypeError(f"gat_attention kernels: a bfloat16, float32 or "
                         f"float64 payload, got {payload}")
@@ -333,10 +301,11 @@ class _GatAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, a_src, a_dst, csr, slope, payload):
+        kernel = route("gat_attention", csr.src, h, a_src, a_dst) == "kernel"
         cd = sums_dtype(payload)
         a_s = a_src.to(cd).contiguous()
         a_d = a_dst.to(cd).contiguous()
-        run = forward_kernel if h.is_cuda else forward_plain
+        run = forward_kernel if kernel else forward_plain
         out, lse, x = run(csr, h, a_s, a_d, slope, payload)
         ctx.save_for_backward(x, a_s, a_d, out, lse)
         ctx.csr, ctx.slope = csr, slope
@@ -347,7 +316,8 @@ class _GatAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, a_s, a_d, out, lse = ctx.saved_tensors
-        run = backward_kernel if g.is_cuda else backward_plain
+        kernel = route("gat_attention", ctx.csr.src, x, g) == "kernel"
+        run = backward_kernel if kernel else backward_plain
         dh, da_src, da_dst = run(ctx.csr, x, a_s, a_d, out, lse, g,
                                  ctx.slope)
         th, ts, td = ctx.dtypes

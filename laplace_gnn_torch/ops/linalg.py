@@ -28,8 +28,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..profiling import annotate, count, tracing
-from .cuda_build import load
-from .launches import LaunchCounter
+from .cuda_build import Kernel, kernel_only, route
 
 SMALL_N = 128   # the largest matrix csrc/small_eigh.cu takes (MAX_N there)
 
@@ -160,36 +159,23 @@ def raise_on_failed_eigensolve(device) -> None:
             "the flag was last cleared")
 
 
-class SmallEigKernel(LaunchCounter):
-    """Wrapper of one entry point of ``csrc/small_eigh.cu`` with a launch
-    counter: ``small_eigvalsh`` (eigenvalues, ascending) or ``small_eigh``
+class SmallEigKernel(Kernel):
+    """Wrapper of one entry point of ``csrc/small_eigh.cu``:
+    ``small_eigvalsh`` (eigenvalues, ascending) or ``small_eigh``
     (eigenvalues in the order of the converged diagonal, and their
     vectors). Takes a (B, n, n) f32 or f64 CUDA tensor, 1 <= n <=
     ``SMALL_N``, reads its lower triangle, launches one block a matrix on
     the current stream and allocates only its outputs."""
 
-    source = "laplace_gnn_torch/csrc/small_eigh.cu"
-
     def __init__(self, name: str, vectors: bool):
-        super().__init__()
-        self.name = name
+        super().__init__(name, "small_eigh", f"{name}_launch",
+                         [ctypes.c_void_p] * (3 if vectors else 2)
+                         + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p, ctypes.c_void_p])
         self.vectors = vectors
-        self._fn = None
-
-    def _entry(self):
-        """The C entry point, built and typed on first use."""
-        if self._fn is None:
-            fn = getattr(load("small_eigh"), f"{self.name}_launch")
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * (3 if self.vectors else 2)
-                           + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p, ctypes.c_void_p])
-            self._fn = fn
-        return self._fn
 
     def __call__(self, M: torch.Tensor):
-        if not M.is_cuda:
-            raise ValueError(f"{self.name}: a CUDA tensor, got {M.device}")
+        kernel_only(self.name, M)
         if M.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"{self.name}: float32 or float64, got {M.dtype}")
         if M.dim() != 3 or M.shape[1] != M.shape[2]:
@@ -206,14 +192,9 @@ class SmallEigKernel(LaunchCounter):
             flag = _failure_flag(M.device)
             outs = [vals.data_ptr()] + ([vecs.data_ptr()] if self.vectors
                                         else [])
-            rc = self._entry()(
-                M.data_ptr(), *outs, b, n, int(M.dtype == torch.float64),
-                flag.data_ptr(),
-                torch.cuda.current_stream(M.device).cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"{self.name} launch failed with CUDA "
-                                   f"error {rc}")
-            self._counted()
+            self.launch(M.data_ptr(), *outs, b, n,
+                        int(M.dtype == torch.float64), flag.data_ptr(),
+                        torch.cuda.current_stream(M.device).cuda_stream)
         return (vals, vecs) if self.vectors else vals
 
 
@@ -225,7 +206,7 @@ def small_eigenvectors(M: torch.Tensor) -> torch.Tensor:
     """Eigenvectors of a (B, n, n) batch, as columns in the order of the
     ascending eigenvalues: the Jacobi kernel on a CUDA tensor (its output
     sorted on the device), ``torch.linalg.eigh`` on a CPU tensor."""
-    if M.device.type == "cpu":
+    if route(eigh_kernel.name, M) == "plain":
         return torch.linalg.eigh(M)[1]
     vals, vecs = eigh_kernel(M)
     order = torch.argsort(vals, dim=-1, stable=True)
@@ -241,7 +222,7 @@ class _SmallEigvalsh(torch.autograd.Function):
 
     @staticmethod
     def forward(M):
-        if M.device.type == "cpu":
+        if route(eigvalsh_kernel.name, M) == "plain":
             return torch.linalg.eigvalsh(M)
         return eigvalsh_kernel(M)
 

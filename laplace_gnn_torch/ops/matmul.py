@@ -22,8 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from .cuda_build import load
-from .launches import LaunchCounter
+from .cuda_build import Kernel, route, sm_count
 
 # the kernel's output tiles (BM, BN): wide, skinny (N <= 64) and narrow
 WIDE, SKINNY, NARROW = (128, 128), (128, 64), (64, 64)
@@ -116,27 +115,14 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype, a_ptr: int, b_ptr: int,
                 k_per_split=k_per_split)
 
 
-class MatmulKernel(LaunchCounter):
-    """Wrapper of the ``matmul`` CUDA kernel with a launch counter (one per
-    call, also when a split-K reduce follows as a second device launch)."""
-
-    name = "matmul"
-    source = "laplace_gnn_torch/csrc/matmul.cu"
+class MatmulKernel(Kernel):
+    """Wrapper of the ``matmul`` CUDA kernel: one counted launch a call,
+    also when a split-K reduce follows as a second device launch."""
 
     def __init__(self):
-        super().__init__()
-        self._fn = None
-        self._sms = {}     # device -> its streaming multiprocessors
-
-    def _entry(self):
-        """The C entry point, built and typed on first use."""
-        if self._fn is None:
-            fn = load("matmul").matmul_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                           + [ctypes.c_void_p])
-            self._fn = fn
-        return self._fn
+        super().__init__("matmul", "matmul", "matmul_launch",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                         + [ctypes.c_void_p])
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor, bm: int = 512,
                  bn: int = 256, bk: int = 512) -> torch.Tensor:
@@ -151,11 +137,8 @@ class MatmulKernel(LaunchCounter):
         if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
             raise ValueError(f"matmul: shapes {tuple(a.shape)} @ "
                              f"{tuple(b.shape)} do not chain")
-        if a.device.type == "cpu" and b.device.type == "cpu":
+        if route("matmul", a, b) == "plain":
             return matmul_reference(a, b)
-        if not (a.is_cuda and b.is_cuda and a.device == b.device):
-            raise ValueError(f"matmul: a on {a.device} and b on {b.device}; "
-                             "both must be on one CUDA device or the CPU")
         return self._launch(a, b, bm, bn)
 
     def _launch(self, a, b, bm, bn):
@@ -172,22 +155,15 @@ class MatmulKernel(LaunchCounter):
             return out
         if K == 0:
             return out.zero_()
-        if a.device not in self._sms:
-            self._sms[a.device] = torch.cuda.get_device_properties(
-                a.device).multi_processor_count
         p = plan(M, N, K, a.dtype, a.data_ptr(), b.data_ptr(),
-                 self._sms[a.device], bm, bn)
+                 sm_count(a.device), bm, bn)
         ws = (torch.empty((p.split, M, N), dtype=torch.float32,
                           device=a.device) if p.split > 1 else None)
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = self._entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                           0 if ws is None else ws.data_ptr(), M, N, K,
-                           int(a.dtype == torch.bfloat16), p.tile[0],
-                           p.tile[1], p.vec, p.split, p.k_per_split,
-                           stream)
-        if rc != 0:
-            raise RuntimeError(f"matmul launch failed with CUDA error {rc}")
-        self._counted()
+        self.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    0 if ws is None else ws.data_ptr(), M, N, K,
+                    int(a.dtype == torch.bfloat16), p.tile[0], p.tile[1],
+                    p.vec, p.split, p.k_per_split,
+                    torch.cuda.current_stream(a.device).cuda_stream)
         return out
 
 

@@ -5,8 +5,8 @@ only tensors that outlive it: static inputs, parameters, optimizer state
 and output buffers. Calling the step calls the function, until
 :func:`capture` has recorded it into a ``torch.cuda.CUDAGraph``; from then
 on calling it replays the graph, so the host launches one graph instead
-of each of its kernels. The kernel wrappers count the launches recorded
-into a graph once per replay (``ops/launches.py``).
+of each of its kernels. The kernels count the launches recorded into a
+graph once per replay (``ops/cuda_build.py::Kernel``).
 
 Each call is a span, ``step.<name>`` when called eagerly and
 ``step.<name>.replay`` when replayed, and counts as ``step.<name>.eager``
@@ -21,7 +21,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..ops.launches import KERNELS
+from ..ops.cuda_build import counting
 from ..profiling import annotate, count
 
 WARMUP = 2      # eager calls of each step before its capture
@@ -37,7 +37,7 @@ class Step:
         self.fn = fn
         self.capture = capture
         self.graph = None
-        self.recorded: dict = {}        # wrapper -> launches a replay
+        self.recorded: dict = {}        # kernel -> launches a replay
         self.calls = 0
         self.launches: dict = {}
         self._span = annotate(f"step.{name}")
@@ -49,13 +49,10 @@ class Step:
         self.calls += 1
         if self.graph is None:
             count(self._eager_counter)
-            before = [k.launches for k in KERNELS]
-            with self._span:
+            with counting() as launched, self._span:
                 self.fn()
-            for k, n in zip(KERNELS, before):
-                if k.launches != n:
-                    self.launches[k.name] = (self.launches.get(k.name, 0)
-                                             + k.launches - n)
+            for k, n in launched.items():
+                self.launches[k.name] = self.launches.get(k.name, 0) + n
             return
         count(self._replay_counter)
         with self._replay_span:
@@ -96,11 +93,9 @@ def capture(steps: Sequence[Step], generators=()) -> None:
             graph = torch.cuda.CUDAGraph()
             for gen in generators:
                 graph.register_generator_state(gen)
-            before = {k: k.recorded for k in KERNELS}
-            with torch.cuda.graph(graph):
+            with counting("recorded") as recorded, torch.cuda.graph(graph):
                 s.fn()
-            s.recorded = {k: k.recorded - n for k, n in before.items()
-                          if k.recorded != n}
+            s.recorded = recorded
             s.graph = graph
     finally:
         if enabled:

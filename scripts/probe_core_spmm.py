@@ -75,12 +75,7 @@ def build_variant(name, edits):
                                              r.stdout + r.stderr))
     print(json.dumps({"built": name, "spill_bytes": spills}), flush=True)
     k = fs.CoreKernel()
-    k._fn = ctypes.CDLL(lib).core_spmm_launch
-    k._fn.restype = ctypes.c_int
-    k._fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7
-                      + [ctypes.c_float] + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p])
+    k.bind(ctypes.CDLL(lib))
     return k, ctypes.CDLL(lib)
 
 

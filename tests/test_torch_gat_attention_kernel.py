@@ -117,7 +117,11 @@ def test_forward_matches_the_composed_body_and_the_segment_path(layout):
 def test_the_backward_matches_autograd(layout):
     """The hand-written backward against autograd through the segment
     path and the composed body, for h, a_src and a_dst; in float64 also
-    ``gradcheck``."""
+    ``gradcheck`` in its fast mode: finite differences along a random
+    projection of the Jacobian, which the comparison at 1e-12 already
+    holds whole. The fast mode scales ``atol`` by the projection's sums,
+    so it is held at rtol 1e-6 and atol 1e-9, where a 1e-4 error in one
+    gradient fails it."""
     g = _graph(layout)
     layout_ = TC.ell_gat_layout(g)
     h, a_src, a_dst = _inputs(g.n_nodes)
@@ -139,7 +143,7 @@ def test_the_backward_matches_autograd(layout):
     if layout != "bf16":
         assert torch.autograd.gradcheck(
             lambda *x: TC.ell_gat_attention(g, layout_, *x, SLOPE),
-            (h, a_src, a_dst))
+            (h, a_src, a_dst), fast_mode=True, rtol=1e-6, atol=1e-9)
 
 
 def test_the_work_items_cover_every_edge_once_in_order():

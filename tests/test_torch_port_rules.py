@@ -253,28 +253,95 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked(no_gpu):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_kernel_wrapper_rejects_mixed_devices():
-    from laplace_gnn_torch.ops.fused_spmm import core
-    a = torch.zeros(4, 4)
-    t = torch.zeros(4, 2, device="meta")
-    with pytest.raises(ValueError):
-        core(a, t)
-
-
-@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd"])
-def test_flash_wrappers_reject_mixed_devices(wrapper):
+def _mixed_device_call(site):
+    """A call of ``site`` with CPU and ``meta`` tensors (the two eigensolver
+    sites take one tensor: it is on ``meta``, neither CPU nor CUDA)."""
     from laplace_gnn_torch.ops import flash_attention as fa
+    from laplace_gnn_torch.ops import gat_attention as ga
+    from laplace_gnn_torch.ops import linalg
+    from laplace_gnn_torch.ops.fused_spmm import core
+    from laplace_gnn_torch.ops.matmul import matmul
+    meta = {"device": "meta"}
+    if site == "core":
+        return lambda: core(torch.zeros(4, 4), torch.zeros(4, 2, **meta))
+    if site == "matmul":
+        return lambda: matmul(torch.zeros(4, 3), torch.zeros(3, 2, **meta))
+    if site in ("small_eigvalsh", "small_eigenvectors"):
+        fn = getattr(linalg, site)
+        return lambda: fn(torch.zeros(2, 4, 4, **meta))
     n, H, F = 6, 2, 3
-    a_src, a_dst = torch.zeros(n, H), torch.zeros(n, H, device="meta")
-    adj, h = torch.ones(n, n), torch.zeros(n, H, F)
-    args = (a_src, a_dst, adj, h)
-    if wrapper == "flash_bwd":
+    a_src, a_dst = torch.zeros(n, H), torch.zeros(n, H, **meta)
+    h = torch.zeros(n, H, F)
+    if site == "gat_attention":
+        src = torch.arange(n)
+        csr = ga.attention_csr(src, src, n)
+        return lambda: ga.gat_attention(csr, h, a_src, a_dst, 0.2)
+    args = (a_src, a_dst, torch.ones(n, n), h)
+    if site == "flash_bwd":
         args += (torch.zeros(n, H, F), torch.zeros(n, H, F),
                  torch.zeros(H, n), torch.ones(H, n))
-    before = getattr(fa, wrapper).launches
-    with pytest.raises(ValueError, match="one CUDA device"):
-        getattr(fa, wrapper)(*args)
-    assert getattr(fa, wrapper).launches == before
+    return lambda: getattr(fa, site)(*args)
+
+
+@pytest.mark.parametrize("site", ["core", "matmul", "flash_fwd", "flash_bwd",
+                                  "gat_attention", "small_eigvalsh",
+                                  "small_eigenvectors"])
+def test_kernel_wrapper_rejects_mixed_devices(site):
+    """Every wrapper takes its plain version on CPU tensors and its kernel
+    on tensors of one CUDA device (``cuda_build.route``); anything else
+    raises before a launch is counted."""
+    from laplace_gnn_torch.ops import cuda_build
+    call = _mixed_device_call(site)
+    with cuda_build.counting() as launched:
+        with pytest.raises(ValueError, match="one CUDA device"):
+            call()
+    assert launched == {}
+
+
+def test_kernel_launch_checks_its_return_and_counts(monkeypatch):
+    """``Kernel.launch`` binds its entry point on first use, counts a
+    launch that returns 0, raises naming the kernel on any other return
+    and counts nothing then, and counts a launch made under a stream
+    capture in ``recorded`` (the capture check is faked: the CPU has no
+    stream to capture)."""
+    import ctypes
+    import types
+    from laplace_gnn_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "KERNELS", [])
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+
+    class Entry:
+        rc = 0
+
+        def __call__(self, *args):
+            self.args = args
+            return self.rc
+
+    entry = Entry()
+    k = cuda_build.Kernel("fake", "fake_lib", "fake_launch", [ctypes.c_int])
+    monkeypatch.setattr(cuda_build, "load",
+                        lambda name: types.SimpleNamespace(fake_launch=entry))
+    assert cuda_build.KERNELS == [k]
+    assert k.source == "laplace_gnn_torch/csrc/fake_lib.cu"
+    with cuda_build.counting() as launched:
+        k.launch(7)
+    assert entry.args == (7,) and entry.restype is ctypes.c_int
+    assert entry.argtypes == [ctypes.c_int]
+    assert (k.launches, k.recorded, launched) == (1, 0, {k: 1})
+    entry.rc = 700
+    with pytest.raises(RuntimeError,
+                       match="fake launch failed with CUDA error 700"):
+        k.launch(7)
+    assert (k.launches, k.recorded) == (1, 0)
+    entry.rc = 0
+    capturing[0] = True
+    with cuda_build.counting("recorded") as recorded:
+        k.launch(7)
+    assert (k.launches, k.recorded, recorded) == (1, 1, {k: 1})
+    k.count_replay(3)
+    assert (k.launches, k.replayed) == (4, 3)
 
 
 def test_flash_kernels_sum_without_atomics():

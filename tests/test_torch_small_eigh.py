@@ -112,7 +112,7 @@ def test_batched_eigvalsh_dispatch_by_device_and_size(n):
     assert got["host_sync"] == 2          # both groups ran torch's solver
     meta = [torch.empty(n, n, device="meta")]
     if n <= L.SMALL_N:
-        with pytest.raises(ValueError, match="a CUDA tensor"):
+        with pytest.raises(ValueError, match="one CUDA device"):
             L.batched_eigvalsh(meta)
     else:
         (lam,) = L.batched_eigvalsh(meta)
