@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only examples   # build + phase 21
     python3 chip_smoke.py --only small_eigh # build + phase 22, kernel work
     python3 chip_smoke.py --only gat_attention  # build + phase 23
+    python3 chip_smoke.py --only spmm       # build + phase 24
 
 Phases, each fatal:
   1. build every CUDA kernel of the port from ``laplace_gnn_torch/csrc``;
@@ -183,7 +184,8 @@ Phases, each fatal:
      and no earlier check covered (each launch's shape is recorded as it
      is made), so no plan that the run chose goes unchecked; it comes
      after every phase that launches the kernel;
- 18. the sparse scale path, which reaches no kernel (as in JAX): the C++
+ 18. the sparse scale path, whose SpMMs launch the ``spmm`` kernel
+     (phase 24) and which reaches no other kernel of the four: the C++
      graph packer must have built; the SpMM of ``FastAggGraph`` on each
      tier (segment, ELL, ELL + overflow levels + remainder) in float32
      and bf16, forward, backward, vmap and jvp against the dense float64
@@ -248,7 +250,8 @@ Phases, each fatal:
      arxiv-shaped graph (with the features each rank holds); (b) the DCN
      bodies at (dcn, graph) = (2, 2) rank by rank on the card against the
      unsharded SpMM and GAT edge softmax (1e-5), with the halo and
-     dcn_psum rows. No kernel is on these paths;
+     dcn_psum rows. No kernel is on these paths but the ``spmm`` kernel of
+     the unsharded SpMMs they are held to;
  21. the examples (``examples/torch/``), the port's user entry points, as
      a user runs them: 01, 06, 03, 07, 08, 12, 09, 02, 13, 04 and 10 (one
      process, a one-rank NCCL group), each through ``main(["--device",
@@ -282,7 +285,19 @@ Phases, each fatal:
      timed cold beside the benchmark's bound, the plain version and the
      composed ELL body; then a SparseGAT training step at the cell's
      widths, whose every layer must take the kernels (``gat.kernel`` ==
-     ``gat.calls``) and whose gradient must come out the same bits twice.
+     ``gat.calls``) and whose gradient must come out the same bits twice;
+ 24. (run right after phase 23) the sparse SpMM kernel
+     (``csrc/spmm.cu``) against the float64 product of the operands it
+     reads and against the plain route: small edge cases (a hub split into
+     ten chunks, nodes without edges; bf16, f32 and f64 operands, d = 1 to
+     1200), then the ``sparsegcn-arxiv`` cell's graph at d = 256 and 40,
+     two calls the same bits, one launch a call, timed cold beside the
+     benchmark's bound, the plain route and ``torch.sparse.mm``, at
+     d = 256 also in slabs of 128 and 64 columns; then a SparseGCN
+     training step at the cell's widths and a last-layer Kron fit with its
+     prior tuning and an MC predictive, each of whose SpMMs must launch
+     the kernel (``spmm.kernel`` == ``spmm.calls``), and two training
+     steps the same gradient bits.
 
 Every phase prints its seconds. Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. With ``--only matmul``
@@ -290,12 +305,14 @@ it runs phases 1 (``matmul.cu`` alone) and 7, and its last line is
 ``{"partial": ["matmul"]}``, never the ``ok`` line; ``--only
 core_spmm`` likewise runs phases 1 (``core_spmm.cu`` alone) and 2, and
 ``--only flash`` phases 1 (``flash_attention.cu`` alone) and 4, and
-``--only sparse`` phase 18 alone (it builds no kernel), ``--only
+``--only sparse`` phase 18 alone (its SpMMs build ``spmm.cu`` at first
+use), ``--only
 parallel`` phases 1 (``core_spmm.cu`` and ``flash_attention.cu``), 19
 and 20, ``--only examples`` phases 1 (``flash_attention.cu``) and 21,
 ``--only small_eigh`` phases 1 (``small_eigh.cu``) and 22, ``--only
 gat_attention`` phases 1 (``gat_attention.cu``) and 23 (last line
-``{"partial": ["gat_attention"]}``).
+``{"partial": ["gat_attention"]}``), ``--only spmm`` phases 1
+(``spmm.cu``) and 24.
 Exits
 non-zero, with no result, when there is no CUDA device or the package is
 not beside it.
@@ -3364,6 +3381,231 @@ def phase_gat_attention(torch, np, ga, peaks):
     return out
 
 
+# -- phase 24: the sparse SpMM kernel (csrc/spmm.cu) -------------------------
+
+# the kernel against the float64 product of the operands it reads (x and
+# the weights rounded to the operand dtype): f32 sums in another order, f64
+SPMM_TOL = {"bfloat16": 2e-6, "float32": 2e-6, "float64": 1e-13}
+# against the plain route, which rounds the sums to bf16 as well
+SPMM_PLAIN_TOL = 1e-2
+SPMM_WIDTHS = (256, 40)             # the cell's hidden and output widths
+SPMM_SLAB_LANES = (32, 16, 8)       # one pass; slabs of 128 and 64 columns
+
+
+def _spmm_rounded(torch, C, g, x, op):
+    """The float64 product of ``x`` and the weights rounded to ``op``, by
+    the segment path on the graph's device."""
+    ref = C.SparseGraph(src=g.src, dst=g.dst,
+                        weights=g.weights.to(op).double(), n_nodes=g.n_nodes,
+                        dst_sorted=True)
+    return ref._aggregate(x.to(op).double())
+
+
+def _spmm_small(torch, C, SK):
+    """Edge cases on a small graph: a hub of 600 edges (ten chunks), nodes
+    with no edge, self-loops; bf16, f32 and f64 operands at d = 1, 3, 40,
+    128, 256 and 1200; two calls the same bits; then the raises on an f16
+    operand and on CPU tensors."""
+    import dataclasses
+    n = 400
+    gen = torch.Generator().manual_seed(24)
+    src = torch.cat([torch.randint(0, n, (3000,), generator=gen),
+                     torch.randint(0, n, (600,), generator=gen)])
+    dst = torch.cat([torch.randint(0, n, (3000,), generator=gen),
+                     torch.full((600,), 5)])
+    keep = (src != 9) & (dst != 9) & (src != 11) & (dst != 11)
+    ei = torch.stack([torch.cat([src[keep], dst[keep]]),
+                      torch.cat([dst[keep], src[keep]])]).numpy()
+    base = C.sparse_from_edge_index(ei, n, normalize="sym",
+                                    add_self_loops=False, device="cuda")
+    if not base.csr().work.merges.shape[0]:
+        raise AssertionError("spmm: the small graph splits no row")
+    rows = []
+    for op in ("bfloat16", "float32", "float64"):
+        dt = getattr(torch, op)
+        g = dataclasses.replace(base, agg_dtype=op,
+                                weights=base.weights.to(
+                                    torch.float64 if op == "float64"
+                                    else torch.float32))
+        for d in (1, 3, 40, 128, 256, 1200):
+            x = torch.randn(n, d, device="cuda", dtype=torch.float64
+                            if op == "float64" else torch.float32)
+            out = g.spmm(x)
+            gap = _rel(out, _spmm_rounded(torch, C, g, x, dt))
+            same = torch.equal(out, g.spmm(x))
+            if gap > SPMM_TOL[op] or not same or out.dtype != x.dtype:
+                raise AssertionError(f"spmm small {op} d={d}: gap {gap} "
+                                     f"(tolerance {SPMM_TOL[op]}), same "
+                                     f"bits {same}, dtype {out.dtype}")
+            rows.append({"op": op, "d": d, "gap": gap})
+    x = torch.randn(n, 8, device="cuda")
+    for bad, err in (((base.csr(), x, torch.float16), TypeError),
+                     ((base.csr(), x.cpu(), None), ValueError)):
+        try:
+            SK.spmm(*bad)
+        except err:
+            continue
+        raise AssertionError(f"spmm: no {err.__name__} on {bad[2]} / "
+                             f"{bad[1].device}")
+    return rows
+
+
+def _route_counts(torch, profiling, fn):
+    """``fn()`` under the profiler, and the SpMM route's counters."""
+    profiling.reset_counters()
+    with torch.profiler.profile():
+        out = fn()
+    counts = profiling.counters()
+    return out, {k: counts.get(k, 0) for k in ("spmm.calls", "spmm.kernel")}
+
+
+def phase_spmm(torch, np, peaks):
+    """The sparse SpMM kernel (csrc/spmm.cu) held to the float64 product of
+    the operands it reads and to the plain route on the card: the small
+    edge cases, then the ``sparsegcn-arxiv`` cell's graph (the sparse
+    CLI's ``build_graph``: ogbn-arxiv-shaped, 'sym' weights, ELL, bf16
+    aggregation) at d = 256 and 40: gaps, two calls the same bits, one
+    launch a call, and cold times of the SpMM's whole call (cast, kernel,
+    merge), of the kernel alone on the rounded operand, of the plain route
+    and of ``torch.sparse.mm`` on the same CSR (``library_ms``), beside the
+    benchmark's bound (``benchmark/benchlib/counts.py::spmm_bound_s``:
+    each edge's 8-byte index and bf16 weight, the bf16 input and output
+    once); at d = 256 the kernel alone in one pass and in slabs of 128 and
+    64 columns. Then the route on the cell's paths: a SparseGCN training
+    step at the cell's widths and a last-layer Kron fit with its prior
+    tuning must launch the kernel for every SpMM (``spmm.kernel`` ==
+    ``spmm.calls``), and two training steps give the same gradient
+    bits."""
+    from laplace_gnn_torch import profiling
+    from laplace_gnn_torch.graph import container as C
+    from laplace_gnn_torch.ops import spmm_kernel as SK
+    from laplace_gnn_torch.training import sparse_experiment as se
+    bw, _ = peaks
+    out = {"small": _spmm_small(torch, C, SK)}
+    print(f"spmm small: {len(out['small'])} cases within tolerance, the "
+          f"same bits twice, f16 and CPU raised; worst "
+          f"{max(r['gap'] for r in out['small']):.3e}", flush=True)
+
+    x_np, y_np, ei = arxiv_like(np)
+    args = se.argument_parser().parse_args(
+        ["--hidden_channels", "256", "--num_layers", "3"])
+    data = argparse.Namespace(edge_index=ei, num_nodes=ARXIV_N,
+                              num_features=ARXIV_F, num_classes=ARXIV_C,
+                              x=x_np)
+    t0 = time.perf_counter()
+    g = se.build_graph(args, data, device="cuda")
+    torch.cuda.synchronize()
+    csr = g.csr()
+    E, n = g.n_edges, g.n_nodes
+    out["graph"] = {"N": n, "E": E, "build_s": time.perf_counter() - t0,
+                    "items": csr.work.items.shape[0],
+                    "split_rows": csr.work.merges.shape[0],
+                    "slots": csr.work.n_slots, "format": g.format,
+                    "agg_dtype": g.agg_dtype}
+    print(f"spmm graph: {out['graph']}", flush=True)
+    bf = torch.bfloat16
+    w = csr.weights[bf]
+    A = torch.sparse_csr_tensor(csr.indptr.long(), csr.src.long(),
+                                csr.weights[torch.float32], (n, n))
+    rows = []
+    for d in SPMM_WIDTHS:
+        x = torch.randn(n, d, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(d))
+        n0 = SK.spmm_launch.launches
+        got = g.spmm(x)
+        launches = SK.spmm_launch.launches - n0
+        gap = _rel(got, _spmm_rounded(torch, C, g, x, bf))
+        plain = g._aggregate(x.to(bf)).float()
+        gap_plain = _rel(got, plain)
+        same = torch.equal(got, g.spmm(x))
+        if (gap > SPMM_TOL["bfloat16"] or gap_plain > SPMM_PLAIN_TOL
+                or not same or launches != 1):
+            raise AssertionError(f"spmm arxiv d={d}: gap {gap}, plain "
+                                 f"{gap_plain}, same bits {same}, "
+                                 f"launches {launches}")
+        xo = SK.operand(x, bf)
+        lanes = SK.lanes_for(xo.shape[1] // 8)
+        slabs = {}
+        for ln in (SPMM_SLAB_LANES if d == 256 else (lanes,)):
+            # another slab width sums each row in another order
+            slab_gap = _rel(SK.launch(csr, xo, w, d, ln), got)
+            if slab_gap > SPMM_TOL["bfloat16"]:
+                raise AssertionError(f"spmm arxiv d={d}: {ln} lanes a slab "
+                                     f"{slab_gap} from one pass")
+            slabs[ln] = cold_ms(torch, lambda: SK.launch(csr, xo, w, d, ln))
+        kernels = profile_step(torch, lambda: g.spmm(x), top=4)
+        row = {"d": d, "ms": cold_ms(torch, lambda: g.spmm(x)),
+               "kernel_ms": slabs[lanes], "lanes": lanes,
+               "slab_ms": slabs,
+               "bound_ms": (E * (8 + 2) + 2 * n * d * 2) / bw * 1e3,
+               "bound_by": "bytes",
+               "gather_tb_s": E * d * 2 / (slabs[lanes] * 1e-3) / 1e12,
+               "plain_ms": cold_ms(torch, lambda: g._aggregate(
+                   x.to(bf)).float(), reps=5),
+               "library_ms": cold_ms(torch, lambda: torch.sparse.mm(A, x)),
+               "library": "torch.sparse.mm, f32 CSR",
+               "gap": gap, "gap_plain": gap_plain, "launches": launches,
+               "kernels": kernels["top"], "card_after": card_state()}
+        row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print("spmm " + json.dumps({k: v for k, v in row.items()
+                                    if k != "kernels"}), flush=True)
+        print("spmm kernels: " + json.dumps(kernels["top"]), flush=True)
+        del x, got, plain, xo
+        torch.cuda.empty_cache()
+    out["rows"] = rows
+
+    # the route on the cell's paths: a training step and a last-layer fit
+    model = se.build_model(args, data, g, device="cuda")
+    params = {k: v.requires_grad_(True) for k, v in model.init().items()}
+    yt = torch.as_tensor(y_np, device="cuda")
+    idx = torch.arange(0, n, 5, device="cuda")
+
+    def step():
+        loss = torch.nn.functional.cross_entropy(model.apply(params, idx),
+                                                 yt[idx])
+        return torch.autograd.grad(loss, list(params.values()))
+    first = step()
+    n0 = SK.spmm_launch.launches
+    second, counts = _route_counts(torch, profiling, step)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    out["train_step"] = {"route": counts, "same_bits": same,
+                         "launches": SK.spmm_launch.launches - n0,
+                         "step_ms_cold": cold_ms(torch, step, reps=5)}
+    print(f"spmm train step: {out['train_step']}", flush=True)
+    # three layers: three SpMMs forward, three transposed backward
+    if (counts["spmm.kernel"] != counts["spmm.calls"]
+            or counts["spmm.calls"] != 6
+            or out["train_step"]["launches"] != 6 or not same):
+        raise AssertionError(f"spmm: the training step's route "
+                             f"{out['train_step']}")
+    fit_params = {k: v.detach() for k, v in params.items()}
+    n0 = SK.spmm_launch.launches
+    t0 = time.perf_counter()
+    la, counts = _route_counts(torch, profiling, lambda: se.fit_posterior(
+        args, model, fit_params, idx, yt[idx]))
+    torch.cuda.synchronize()
+    out["fit"] = {"route": counts, "s": time.perf_counter() - t0,
+                  "launches": SK.spmm_launch.launches - n0}
+    probs, pcounts = _route_counts(torch, profiling, lambda: la(
+        idx[:1000], pred_type="nn", link_approx="mc", n_samples=4))
+    out["predictive"] = {"route": pcounts,
+                         "rows_sum_to_1": bool(torch.allclose(
+                             probs.sum(-1), torch.ones_like(probs[:, 0]),
+                             atol=1e-5))}
+    print(f"spmm fit: {out['fit']}; predictive {out['predictive']}",
+          flush=True)
+    if (counts["spmm.kernel"] != counts["spmm.calls"]
+            or not counts["spmm.calls"]
+            or pcounts["spmm.kernel"] != pcounts["spmm.calls"]
+            or not pcounts["spmm.calls"]
+            or not out["predictive"]["rows_sum_to_1"]):
+        raise AssertionError(f"spmm: the fit's route {out['fit']}, the "
+                             f"predictive's {out['predictive']}")
+    return out
+
+
 def _trace_gap(a, b) -> float:
     """Largest |a - b| / |b| over two traces."""
     return max(abs(float(x) - float(z)) / max(abs(float(z)), 1e-30)
@@ -4883,7 +5125,8 @@ def phase_memory_dcn(torch, np, card):
     """Phase 20: (a) rank 0 of a 4-rank group alone on the card (a fake
     group, ``allow_fake=True``) against the unsharded step, for the
     composed STE-GCN Kron hyperstep and the SparseGCN train step; (b) the
-    DCN bodies rank by rank. No kernel is on these paths."""
+    DCN bodies rank by rank. No kernel is on these paths but the ``spmm``
+    kernel of the unsharded SpMMs."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from laplace_gnn_torch import parallel as P
@@ -5057,7 +5300,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["matmul", "core_spmm", "flash",
                                            "sparse", "parallel", "examples",
-                                           "small_eigh", "gat_attention"],
+                                           "small_eigh", "gat_attention",
+                                           "spmm"],
                         help="build and run this kernel's phase alone; "
                              "prints no ok line")
     args = parser.parse_args(argv)
@@ -5118,6 +5362,18 @@ def main(argv=None) -> int:
                        "gat_attention": gat_att}, f, indent=1, default=str)
         print(card, flush=True)
         print(json.dumps({"partial": ["gat_attention"]}), flush=True)
+        return 0
+    if args.only == "spmm":
+        build_kernels(cuda_build, out_dir, ["spmm"])
+        t0 = time.perf_counter()
+        spmm = phase_spmm(torch, np, peaks)
+        print(f"phase 24 phase_spmm: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        with open(os.path.join(out_dir, "chip_smoke_spmm.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "peaks": peak_name,
+                       "spmm": spmm}, f, indent=1, default=str)
+        print(card, flush=True)
+        print(json.dumps({"partial": ["spmm"]}), flush=True)
         return 0
     if args.only == "core_spmm":
         build_kernels(cuda_build, out_dir, ["core_spmm"])
@@ -5201,6 +5457,8 @@ def main(argv=None) -> int:
     eig_rows, eig_checks = phase("22", phase_small_eigh, torch, linalg,
                                  peaks)
     gat_att = phase("23", phase_gat_attention, torch, np, ga, peaks)
+    torch.cuda.empty_cache()
+    spmm = phase("24", phase_spmm, torch, np, peaks)
     torch.cuda.empty_cache()
     small = phase("3", phase_small_reference, torch, np)
     run, stegcn_state = phase("3", phase_trainer, torch, np, card)
@@ -5331,10 +5589,24 @@ def main(argv=None) -> int:
         "plain_ms": r["plain_fwd_ms"] + r["plain_bwd_ms"],
         "bound_ms": r["bound_fwd_ms"] + r["bound_bwd_ms"],
         "bound_by": r["bound_by"], "library_ms": None})
+    # the sparse SpMM replaces no Pallas kernel (the JAX package's sparse
+    # aggregation is plain XLA); its row is the cell's hidden width
+    r = spmm["rows"][0]
+    kernels.append({
+        "name": "spmm", "route": "cuda", "source": "laplace_gnn_torch/csrc/"
+        "spmm.cu",
+        "replaces": "none: the JAX package's sparse aggregation is plain "
+                    "XLA",
+        "launches": {"train_step": spmm["train_step"]["route"],
+                     "fit": spmm["fit"]["route"]},
+        "max_rel_err": max(x["gap"] for x in spmm["small"] + spmm["rows"]),
+        "ms": r["ms"], "kernel_ms": r["kernel_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "peaks": peak_name,
                    "small_eigh": eig_rows, "small_eigh_checks": eig_checks,
-                   "gat_attention": gat_att,
+                   "gat_attention": gat_att, "spmm": spmm,
                    "core_spmm": rows, "core_spmm_checks": core_checks,
                    "trainer": run, "small": small,
                    "flash": flash_rows, "flash_checks": flash_checks,

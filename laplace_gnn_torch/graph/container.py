@@ -24,7 +24,10 @@ atomics): the GAT attention runs on them. ``FastAggGraph`` wraps the whole
 aggregation as one linear Function: its backward is the SpMM of A^T (the
 graph itself when it is symmetric), its forward-mode rule the map itself,
 and its vmap rule folds the batch into the feature axis; the models use
-it, and ``SparseGraph.spmm`` alone is the plain aggregation.
+it. ``SparseGraph.spmm`` is the aggregation: on one CUDA device the
+hand-written kernel over the graph's dst-sorted CSR
+(:mod:`~laplace_gnn_torch.ops.spmm_kernel`, its layout formed with the
+graph), on the CPU the tiers above (``_aggregate``), its plain version.
 
 The host-side packing (degrees, the dst sort, the symmetry check, the ELL
 pack) runs in C++ (:mod:`laplace_gnn_torch.native`) where it builds, and in
@@ -44,6 +47,8 @@ import torch.nn.functional as F
 
 from .. import native
 from ..device import resolve_device
+from ..ops import spmm_kernel
+from ..ops.cuda_build import route
 from ..ops.gat_attention import attention_csr, gat_attention
 from ..profiling import annotate, count, tracing
 
@@ -279,6 +284,8 @@ class SparseGraph:
         self.segments("dst")
         if self.has_remainder():
             self.segments("rem")
+        if self.device.type == "cuda":
+            self.csr()
 
     def segments(self, which: str = "dst") -> Segments:
         """The (cached) segment plan over ``dst``, ``src``, or the
@@ -299,15 +306,42 @@ class SparseGraph:
     def has_remainder(self) -> bool:
         return self.rem_src is not None and self.rem_src.shape[0] > 0
 
+    def csr(self) -> spmm_kernel.SpmmCsr:
+        """The (cached) dst-sorted CSR layout of the SpMM's kernel, with the
+        weights in their own dtype and in ``agg_dtype``."""
+        if "csr" not in self._plans:
+            if torch._C._are_functorch_transforms_active():
+                raise RuntimeError("form the CSR layout outside torch.func "
+                                   "transforms (call graph.csr() first)")
+            self._plans["csr"] = spmm_kernel.spmm_csr(
+                self.src, self.dst, self.weights, self.n_nodes,
+                dst_sorted=self.dst_sorted,
+                dtypes=(_torch_dtype(self.agg_dtype),))
+        return self._plans["csr"]
+
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
-        """``out[i] = sum_{e: dst_e = i} w_e x[src_e]`` for (N, d) ``x``.
-        The span ``spmm``; counts ``spmm.calls`` and ``spmm.edge_columns``
-        (stored edges times the columns of ``x``: the work done)."""
+        """``out[i] = sum_{e: dst_e = i} w_e x[src_e]`` for (N, d) ``x``:
+        the kernel (:func:`~laplace_gnn_torch.ops.spmm_kernel.spmm`, counted
+        ``spmm.kernel``) on one CUDA device, the plain aggregation on the
+        CPU. The span ``spmm``; counts ``spmm.calls`` and
+        ``spmm.edge_columns`` (stored edges times the columns of ``x``: the
+        work done). The kernel has no autograd rule of its own: a call that
+        needs a gradient goes through :class:`FastAggGraph`'s linear
+        Function, whose backward is the SpMM of A^T."""
+        kernel = route("spmm", self.src, x) == "kernel"
+        if kernel and x.requires_grad and torch.is_grad_enabled():
+            if "fast" not in self._plans:
+                self._plans["fast"] = FastAggGraph(self)
+            return self._plans["fast"].spmm(x)
         if tracing():
             count("spmm.calls")
             count("spmm.edge_columns", self.n_edges * x.shape[1])
         with annotate("spmm"):
             agg = _torch_dtype(self.agg_dtype)
+            if kernel:
+                if tracing():
+                    count("spmm.kernel")
+                return spmm_kernel.spmm(self.csr(), x, agg)
             if agg is not None and x.dtype != agg:
                 return self._aggregate(x.to(agg)).to(x.dtype)
             return self._aggregate(x)

@@ -169,10 +169,18 @@ class Kernel:
 
     def launch(self, *args) -> None:
         """Call the entry point (bound on first use) and count the launch;
-        raises on a non-zero return, counting nothing."""
+        raises on a non-zero return, counting nothing. Under a profiler the
+        call is an operation named ``name``, so the device work it launches
+        is counted under the spans around it (a span's device time sums the
+        operations inside it, and a kernel launched outside any operation
+        belongs to none)."""
         if self._fn is None:
             self.bind()
-        rc = self._fn(*args)
+        if torch.autograd._profiler_enabled():
+            with torch._C._profiler._RecordFunctionFast(self.name):
+                rc = self._fn(*args)
+        else:
+            rc = self._fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed with CUDA error "
                                f"{rc}")

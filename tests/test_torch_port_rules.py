@@ -269,6 +269,11 @@ def _mixed_device_call(site):
     if site in ("small_eigvalsh", "small_eigenvectors"):
         fn = getattr(linalg, site)
         return lambda: fn(torch.zeros(2, 4, 4, **meta))
+    if site == "spmm":
+        from laplace_gnn_torch.graph.container import sparse_from_edge_index
+        g = sparse_from_edge_index(np.array([[0, 1], [1, 0]]), 4,
+                                   device="cpu")
+        return lambda: g.spmm(torch.zeros(4, 3, **meta))
     n, H, F = 6, 2, 3
     a_src, a_dst = torch.zeros(n, H), torch.zeros(n, H, **meta)
     h = torch.zeros(n, H, F)
@@ -285,7 +290,7 @@ def _mixed_device_call(site):
 
 @pytest.mark.parametrize("site", ["core", "matmul", "flash_fwd", "flash_bwd",
                                   "gat_attention", "small_eigvalsh",
-                                  "small_eigenvectors"])
+                                  "small_eigenvectors", "spmm"])
 def test_kernel_wrapper_rejects_mixed_devices(site):
     """Every wrapper takes its plain version on CPU tensors and its kernel
     on tensors of one CUDA device (``cuda_build.route``); anything else
@@ -342,6 +347,33 @@ def test_kernel_launch_checks_its_return_and_counts(monkeypatch):
     assert (k.launches, k.recorded, recorded) == (1, 1, {k: 1})
     k.count_replay(3)
     assert (k.launches, k.replayed) == (4, 3)
+
+
+def test_kernel_launch_is_an_operation_under_a_profiler(monkeypatch):
+    """Under a profiler a launch is an operation (not a user span) named
+    after the kernel, inside the spans around the call, so the device
+    work it launches counts under them; it calls the entry point once
+    either way."""
+    import ctypes
+    import types
+    from laplace_gnn_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "KERNELS", [])
+    calls = []
+    entry = types.SimpleNamespace()
+    entry.fake_launch = lambda *args: calls.append(args) or 0
+    monkeypatch.setattr(cuda_build, "load", lambda name: entry)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    k = cuda_build.Kernel("fake", "fake_lib", "fake_launch", [ctypes.c_int])
+    with torch.profiler.profile() as prof:
+        with torch.autograd.profiler.record_function("lgnn.outer"):
+            k.launch(3)
+    k.launch(4)
+    (event,) = [e for e in prof.events() if e.name == "fake"]
+    assert event.scope == 0 and not event.is_user_annotation
+    assert event.cpu_parent is not None
+    assert event.cpu_parent.name == "lgnn.outer"
+    assert calls == [(3,), (4,)] and k.launches == 2
 
 
 def test_flash_kernels_sum_without_atomics():
