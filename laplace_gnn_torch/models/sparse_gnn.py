@@ -307,6 +307,127 @@ class SparseSAGE(SparseGCN):
         return SparseSAGEConv(in_channels, out_channels, name=name, **kwargs)
 
 
+class SparseGCNIIConv(nn.Module):
+    """One GCNII layer over a SparseGraph (Chen et al., ICML 2020):
+    ``ReLU((1 - theta) S + theta S W^T)`` with the initial residual
+    ``S = (1 - alpha) graph.spmm(x) + alpha h0``. The weight is a
+    bias-free Linear's (``lin.weight``, (out, in)); the layer is no KFAC
+    site. Build the graph with ``normalize='sym'`` and self-loops."""
+
+    def __init__(self, channels: int, alpha: float, theta: float,
+                 name: str = "conv", generator=None, dtype=torch.float32):
+        super().__init__()
+        self.lin = Linear(channels, channels, bias=False, name=name,
+                          generator=generator, dtype=dtype)
+        self.alpha, self.theta, self.name = alpha, theta, name
+
+    def forward(self, graph, x: torch.Tensor,
+                h0: torch.Tensor) -> torch.Tensor:
+        if tracing():
+            count("gcnii.calls")
+            return spanned("gcnii.conv", self._layer, graph, x, h0)
+        return self._layer(graph, x, h0)
+
+    def _layer(self, graph, x, h0):
+        s = torch.lerp(graph.spmm(x), h0, self.alpha)
+        return torch.relu(torch.addmm(s, s, self.lin.weight.T,
+                                      beta=1 - self.theta,
+                                      alpha=self.theta))
+
+    def tap_sites(self) -> list[dict]:
+        return []
+
+
+class _LinearLayer(nn.Module):
+    """A Linear in a model's ``convs`` (parameters ``convs.<i>.lin.*``):
+    GCNII's input and output layers, which aggregate nothing."""
+
+    def __init__(self, in_channels: int, out_channels: int, name: str,
+                 generator=None, dtype=torch.float32):
+        super().__init__()
+        self.lin = Linear(in_channels, out_channels, name=name,
+                          generator=generator, dtype=dtype)
+        self.name = name
+
+    def forward(self, x: torch.Tensor,
+                taps: Optional[TapCollector] = None) -> torch.Tensor:
+        return self.lin(x, taps=taps)
+
+    def tap_sites(self) -> list[dict]:
+        return [{"name": self.name, "param_path": ("lin",),
+                 "has_bias": True}]
+
+
+class SparseGCNII(SparseGCN):
+    """GCNII over a SparseGraph (Chen et al., "Simple and Deep Graph
+    Convolutional Networks", ICML 2020): ``H_0 = ReLU(X W_in^T + b_in)``,
+    ``num_layers`` :class:`SparseGCNIIConv` layers that each read
+    ``H_0``, layer ``l`` with ``theta_l = ln(lamda / l + 1)``, then the
+    output Linear. Parameters: ``convs.0.lin.*`` (input), ``convs.<l>.lin.
+    weight`` for l = 1..num_layers, ``convs.<num_layers + 1>.lin.*``
+    (output). Dropout where the source has it: on X and on each layer's
+    input. ``param_groups`` gives the source's two weight decays. The
+    KFAC sites are the two Linears': a Kron posterior over every weight
+    gives the convs' weights diagonal blocks (the mixed KFAC)."""
+
+    #: the source's weight decays (its ``--wd1`` / ``--wd2`` defaults): the
+    #: convs' weights, then the input and output Linears'
+    weight_decays = (0.01, 5e-4)
+
+    def __init__(self, in_channels, hidden_channels, out_channels,
+                 num_layers, X, graph, alpha: float = 0.1,
+                 lamda: float = 0.5, dropout_p: float = 0.6, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_channels, hidden_channels, out_channels,
+                         num_layers, X, graph, dropout_p=dropout_p,
+                         device=device, dtype=dtype, generator=generator,
+                         alpha=alpha, lamda=lamda)
+
+    def _draw(self, generator: torch.Generator) -> dict:
+        kw = self._conv_kwargs
+        hidden, L = self.hidden_channels, self.num_layers
+        mk = dict(generator=generator, dtype=kw["dtype"])
+        convs = [_LinearLayer(self.in_channels, hidden, "convs.0", **mk)]
+        convs += [SparseGCNIIConv(hidden, kw["alpha"],
+                                  math.log(kw["lamda"] / l + 1),
+                                  name=f"convs.{l}", **mk)
+                  for l in range(1, L + 1)]
+        convs.append(_LinearLayer(hidden, self.out_channels,
+                                  f"convs.{L + 1}", **mk))
+        return {"convs": nn.ModuleList(convs)}
+
+    def param_groups(self, params: dict) -> list:
+        """``params`` in torch's param-group form with the source's two
+        weight decays: the convs' weights, then the input and output
+        Linears' weights and biases."""
+        dense = ("convs.0.", f"convs.{self.num_layers + 1}.")
+        wd_conv, wd_linear = self.weight_decays
+        return [{"params": [v for k, v in params.items()
+                            if not k.startswith(dense)],
+                 "weight_decay": wd_conv},
+                {"params": [v for k, v in params.items()
+                            if k.startswith(dense)],
+                 "weight_decay": wd_linear}]
+
+    def forward(self, x_indices=None, taps: Optional[TapCollector] = None,
+                generator: Optional[torch.Generator] = None,
+                train: bool = False, row_axis=None) -> torch.Tensor:
+        """The source's order: dropout, the input Linear and ReLU
+        (``H_0``); each conv on the dropped-out previous layer and
+        ``H_0``; dropout and the output Linear; then the rows
+        ``x_indices``."""
+        def drop(x):
+            return dropout(x, self.dropout_p, train, generator, row_axis)
+
+        h0 = torch.relu(self.convs[0](drop(self.X), taps=taps))
+        x = h0
+        for conv in self.convs[1:-1]:
+            x = conv(self.graph, drop(x), h0)
+        x = self.convs[-1](drop(x), taps=taps)
+        return select_rows(x, x_indices, row_axis)
+
+
 class SparseGAT(SparseGCN):
     """GAT over a SparseGraph with a per-edge softmax. Pass a graph with
     self-loops and ``normalize=None``. With ``concat`` each layer's output

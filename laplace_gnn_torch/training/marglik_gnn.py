@@ -206,6 +206,15 @@ def _accuracy(f, yy):
     return torch.mean((torch.argmax(f, dim=1) == yy).to(f.dtype))
 
 
+def _param_group(group: dict, weight_decay: float) -> tuple:
+    """(tensors, weight decay) of one of torch's param groups."""
+    extra = set(group) - {"params", "weight_decay"}
+    if extra:
+        raise ValueError(f"DeviceAdam's param groups take 'params' and "
+                         f"'weight_decay' only, got {sorted(extra)}")
+    return list(group["params"]), group.get("weight_decay", weight_decay)
+
+
 class DeviceAdam:
     """``torch.optim.Adam``'s update (the L2 term added to the gradient, no
     amsgrad), step for step as its single-tensor loop computes it, with the
@@ -213,11 +222,21 @@ class DeviceAdam:
     the update is device work, so a CUDA graph can replay it. (torch's
     ``capturable=True`` Adam keeps the count in the default float dtype,
     whose float32 bias corrections part from the non-capturable update by
-    ~1e-7, and refuses CPU tensors.)"""
+    ~1e-7, and refuses CPU tensors.)
+
+    ``params`` is an iterable of tensors, or torch's param-group form: a
+    list of dicts, each with its ``params`` and, where it differs from
+    ``weight_decay``, its own ``weight_decay``. ``self.params`` lists the
+    tensors group by group and ``self.decays`` their weight decays."""
 
     def __init__(self, params, lr: float, weight_decay: float = 0.0,
                  betas=(0.9, 0.999), eps: float = 1e-8):
-        self.params = list(params)
+        params = list(params)
+        groups = ([(params, weight_decay)]
+                  if not params or not isinstance(params[0], dict)
+                  else [_param_group(g, weight_decay) for g in params])
+        self.params = [p for ps, _ in groups for p in ps]
+        self.decays = [wd for ps, wd in groups for _ in ps]
         self.lr, self.weight_decay, self.betas, self.eps = (
             lr, weight_decay, betas, eps)
         self.step_count = torch.zeros((), dtype=torch.float64,
@@ -237,10 +256,11 @@ class DeviceAdam:
         self.step_count += 1
         neg_step_size = -(self.lr / (1 - beta1 ** self.step_count))
         bias_correction2_sqrt = (1 - beta2 ** self.step_count) ** 0.5
-        for p, m, v in zip(self.params, self.exp_avg, self.exp_avg_sq):
+        for p, m, v, wd in zip(self.params, self.exp_avg, self.exp_avg_sq,
+                               self.decays):
             g = p.grad
-            if self.weight_decay != 0:
-                g = g.add(p, alpha=self.weight_decay)
+            if wd != 0:
+                g = g.add(p, alpha=wd)
             m.lerp_(g, 1 - beta1)
             v.mul_(beta2).addcmul_(g, g, value=1 - beta2)
             denom = (v.sqrt() / bias_correction2_sqrt).add_(self.eps)

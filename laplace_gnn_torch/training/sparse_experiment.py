@@ -1,7 +1,7 @@
 """Scale CLI: fixed-graph sparse models end to end.
 
 Counterpart of ``laplace_gnn_tpu/training/sparse_experiment.py``:
-SparseGCN / SparseSAGE / SparseGAT over a
+SparseGCN / SparseSAGE / SparseGAT / SparseGCNII over a
 :class:`~laplace_gnn_torch.graph.container.SparseGraph`, full-graph Adam
 training (with rolling checkpoints that a restart resumes from, the
 optimizer state included), a post-hoc Laplace fit with marglik prior
@@ -29,11 +29,12 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..profiling import count
 
-SPARSE_MODELS = ("sparsegcn", "sparsesage", "sparsegat")
+SPARSE_MODELS = ("sparsegcn", "sparsesage", "sparsegat", "sparsegcnii")
 
 
 def argument_parser() -> argparse.ArgumentParser:
-    """The JAX CLI's flags, defaults and choices."""
+    """The JAX CLI's flags, defaults and choices, and one more model,
+    ``sparsegcnii``."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--dataset", default="sbm")
     p.add_argument("--model_type", default="sparsegcn",
@@ -77,12 +78,13 @@ def argument_parser() -> argparse.ArgumentParser:
 
 
 def build_graph(args, data, device=None):
-    """The model's SparseGraph: 'sym' weights for GCN, 'row' for SAGE, none
-    for GAT; the hybrid ELL form and ``agg_dtype`` apply to every model."""
+    """The model's SparseGraph: 'sym' weights for GCN and GCNII, 'row' for
+    SAGE, none for GAT; the hybrid ELL form and ``agg_dtype`` apply to
+    every model."""
     from ..graph.container import add_ell_format, sparse_from_edge_index
 
     normalize = {"sparsegcn": "sym", "sparsesage": "row",
-                 "sparsegat": None}[args.model_type]
+                 "sparsegat": None, "sparsegcnii": "sym"}[args.model_type]
     g = sparse_from_edge_index(data.edge_index, data.num_nodes,
                                normalize=normalize, device=device)
     if args.ell:
@@ -96,8 +98,9 @@ def build_model(args, data, g, device=None, **overrides):
     """The CLI's model on ``g``. ``overrides`` are keyword arguments of the
     model's constructor, added to or taking the place of the CLI's: the
     options that have no flag (``norm``, ``res``, SparseGAT's
-    ``mean_output_heads``, ...), so the flags stay the JAX CLI's."""
-    from ..models import SparseGAT, SparseGCN, SparseSAGE
+    ``mean_output_heads``, SparseGCNII's ``alpha`` and ``lamda``, ...), so
+    the flags stay the JAX CLI's."""
+    from ..models import SparseGAT, SparseGCN, SparseGCNII, SparseSAGE
 
     kw = dict(in_channels=data.num_features,
               hidden_channels=args.hidden_channels,
@@ -109,6 +112,8 @@ def build_model(args, data, g, device=None, **overrides):
         return SparseGCN(**kw)
     if args.model_type == "sparsesage":
         return SparseSAGE(**kw)
+    if args.model_type == "sparsegcnii":
+        return SparseGCNII(**kw)
     return SparseGAT(heads=args.heads, **kw)
 
 
@@ -139,9 +144,16 @@ def _load_opt_state(opt, state: dict) -> None:
 def fit_posterior(args, model, params: dict, train_idx, y_train):
     """The post-hoc Laplace fit with marglik prior tuning. SparseGAT with
     kron runs the mixed-structure KFAC (Kron for the Linear sites, exact
-    or Hutchinson diagonals for the attention vectors)."""
+    or Hutchinson diagonals for the attention vectors). SparseGCNII takes
+    the last layer only."""
     from ..laplace.dispatch import Laplace
 
+    if args.model_type == "sparsegcnii" and \
+            args.subset_of_weights != "last_layer":
+        raise ValueError("sparsegcnii: --subset_of_weights all is not "
+                         "supported (its convs are no KFAC sites, and no "
+                         "curvature over them has been held to a dense "
+                         "GGN); use last_layer")
     backend_kwargs = {"seed": args.fisher_seed}
     if args.fisher_type is not None:
         backend_kwargs.update(fisher_type=args.fisher_type,
@@ -214,7 +226,10 @@ def main(argv=None, device=None) -> dict:
     y = torch.as_tensor(np.asarray(data.y), device=dev)
     tr_t = torch.as_tensor(tr, device=dev)
     y_tr = y[tr_t]
-    opt = DeviceAdam(params.values(), lr=args.lr)
+    # a model with weight-decay groups (SparseGCNII) gives them
+    groups = (model.param_groups(params) if hasattr(model, "param_groups")
+              else params.values())
+    opt = DeviceAdam(groups, lr=args.lr)
 
     t0 = _synchronized(dev)
     if args.checkpoint_dir:

@@ -166,9 +166,15 @@ def _flags(parser):
 
 
 def test_argument_parser_matches_jax():
-    assert _flags(TS.argument_parser()) == _flags(JS.argument_parser())
+    """The port's flags are JAX's, but for one more sparse model type,
+    ``sparsegcnii``, which the JAX package lacks."""
+    port, jax_ = _flags(TS.argument_parser()), _flags(JS.argument_parser())
+    default, choices, kind, required = jax_.pop("model_type")
+    assert port.pop("model_type") == (
+        default, tuple(choices) + ("sparsegcnii",), kind, required)
+    assert port == jax_
     assert _flags(TE.argument_parser()) == _flags(JE.argument_parser())
-    assert TS.SPARSE_MODELS == JS.SPARSE_MODELS
+    assert TS.SPARSE_MODELS == tuple(JS.SPARSE_MODELS) + ("sparsegcnii",)
 
 
 def test_sparse_experiment_main_on_sbm():

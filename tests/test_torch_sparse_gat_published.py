@@ -25,7 +25,7 @@ Also: the output layer averages its heads and takes its bias after the
 mean; 40 classes over 3 heads build with the option and are refused
 without it; the default ``SparseGAT`` is the same model, bit for bit,
 with the option off; ``build_model``'s keyword arguments reach the model;
-the CLI's flags are still the JAX CLI's."""
+the CLI's flags are still the JAX CLI's, but for one more model type."""
 
 import importlib.util
 import os
@@ -250,9 +250,17 @@ def test_build_model_passes_its_keyword_arguments_to_the_model():
 
 
 def test_the_cli_flags_are_still_the_jax_clis():
+    """Every flag is the JAX CLI's, with one departure: ``model_type``'s
+    choices are JAX's and ``sparsegcnii``."""
     def flags(parser):
         return {a.dest: (a.default, a.choices, a.type, a.required)
                 for a in parser._actions if a.dest != "help"}
-    assert flags(SE.argument_parser()) == flags(JS.argument_parser())
-    assert not {"norm", "res", "mean_output_heads"} & set(
-        flags(SE.argument_parser()))
+    port, jax_ = flags(SE.argument_parser()), flags(JS.argument_parser())
+    default, choices, kind, required = jax_["model_type"]
+    jax_["model_type"] = (default, tuple(choices) + ("sparsegcnii",), kind,
+                          required)
+    port["model_type"] = port["model_type"][:1] + (
+        tuple(port["model_type"][1]),) + port["model_type"][2:]
+    assert port == jax_
+    assert not {"norm", "res", "mean_output_heads", "alpha", "lamda"} & \
+        set(port)
