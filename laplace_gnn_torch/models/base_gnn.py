@@ -213,6 +213,13 @@ class BaseGNN(nn.Module):
     def full_adj(self, params: dict) -> torch.Tensor:
         return params["adj"]
 
+    def form_adj(self, params: dict) -> None:
+        """Form anew what the model holds between forwards that follows
+        from ``params["adj"]``'s value (nothing here; the fused STE-GCN's
+        aggregation inputs). A forward finds a changed value itself; code
+        that replays CUDA graphs, which run no Python, calls this wherever
+        the adjacency changes."""
+
     def reset_adj(self, params: dict) -> dict:
         """A new dict whose ``adj`` is a copy of the initial adjacency, in
         ``params["adj"]``'s dtype and on its device."""

@@ -17,8 +17,7 @@ import torch
 from ..nn.module import Linear, TapCollector
 from ..ops.adjacency import (binarize_ste, fill_diagonal, fill_diagonal_any,
                              normalize_adj, sample_neigh_adj, train_adj_mask)
-from ..ops.fused_spmm import (StaticNormAdjOp, norm_aggregate,
-                              ste_norm_aggregate)
+from ..ops.fused_spmm import StaticNormAdjOp, SteForms, norm_aggregate
 from .base_gnn import BaseGNN
 from .layers import GATConv, GCNConv, GraphSAGEConv
 
@@ -122,6 +121,8 @@ class STEGCN(BaseGNN):
         self.fused = fused
         self.threshold = threshold
         self.sign_grad = sign_grad
+        # the fused aggregation's a_sym and degrees, one form per adj value
+        self.ste_forms = SteForms()
         self.train_masked_update = train_masked_update
         self.grad_adj_mask = None
         if train_masked_update:
@@ -149,7 +150,7 @@ class STEGCN(BaseGNN):
                 # gradient w.r.t. adj is exactly zero. Detaching here
                 # reproduces that.
                 adj = adj.detach()
-            return FusedAdjOp(lambda s: ste_norm_aggregate(
+            return FusedAdjOp(lambda s: self.ste_forms.aggregate(
                 adj, s, self.threshold, self.symmetric, self.sign_grad,
                 self.grad_adj_mask))
         if self.symmetric:
@@ -157,6 +158,12 @@ class STEGCN(BaseGNN):
         adj = binarize_ste(adj, self.threshold, self.grad_adj_mask,
                            self.sign_grad)
         return normalize_adj(fill_diagonal(adj, 1.0))
+
+    def form_adj(self, params: dict) -> None:
+        if self.fused:
+            adj = params["adj"]
+            self.ste_forms.form(adj, self.threshold, self.symmetric,
+                                adj.dtype)
 
     def has_row_route(self) -> bool:
         """The composed path only: ``fused=True`` keeps the square

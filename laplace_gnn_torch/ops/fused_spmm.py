@@ -24,15 +24,22 @@ built from differentiable ops (``core`` itself is a differentiable
 Function whose t-gradient is the transposed ``core``), recomputing what it
 needs from the saved inputs, so the marglik hyperstep can differentiate the
 KFAC pullbacks that run through it.
+
+Inputs. ``a_sym`` (the symmetrized adjacency) and ``d`` (the rsqrt degrees)
+follow from the adjacency's value alone. :func:`ste_norm_aggregate` forms
+them on every call; :class:`SteForms`, which the fused STE-GCN holds,
+forms them once per value and hands the same buffers to every call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..profiling import _capturing, count
 from .cuda_build import Kernel, route, sm_count
 
 BM = 128                  # the kernel's row tile (rows of out)
@@ -292,12 +299,131 @@ def ste_norm_aggregate(adj: torch.Tensor, s: torch.Tensor,
                        grad_mask: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """``normalize(fill_diag(binarize(sym(adj), threshold), 1)) @ s``,
-    fused, with straight-through gradients into ``adj``."""
+    fused, with straight-through gradients into ``adj``. Forms ``a_sym``
+    and ``d`` afresh on every call (:class:`SteForms` holds them)."""
+    count("ste.calls")
+    count("ste.forms")
     with torch.no_grad():
         a_sym = _sym(adj, symmetric)
         d = _ste_degree(a_sym, threshold, s.dtype)
     return _SteNormAggregate.apply(adj, s, a_sym, d, threshold, symmetric,
                                    sign_grad, grad_mask)
+
+
+def _plain(adj: torch.Tensor) -> Optional[torch.Tensor]:
+    """``adj``, or the tensor beneath its ``torch.func`` grad wrappers,
+    which has its value, storage and version counter; None where there is
+    none to read: under a vmap that batches it, for a tensor subclass and
+    for an inference tensor (which keeps no version)."""
+    F = torch._C._functorch
+    while F.is_functorch_wrapped_tensor(adj):
+        if not F.is_gradtrackingtensor(adj):
+            return None
+        adj = F.get_unwrapped(adj)
+    if type(adj) not in (torch.Tensor, torch.nn.Parameter) or \
+            adj.is_inference():
+        return None
+    return adj
+
+
+class _Held:
+    """One pair of buffers: ``a_sym`` (None where ``symmetric`` is off and
+    the adjacency is its own ``a_sym``) and ``d``, with the value they were
+    last formed from: the adjacency's storage (a weak reference, so a new
+    tensor at a freed address is a miss) and its ``key``. ``captured``:
+    formed while a stream captured, so the buffers hold that value only
+    once the graph replays, and only a capture may read them."""
+
+    __slots__ = ("a_sym", "d", "storage", "key", "captured")
+
+    def __init__(self, a_sym, d):
+        self.a_sym, self.d = a_sym, d
+        self.storage, self.key, self.captured = None, None, False
+
+    def holds(self, adj, key) -> bool:
+        return (self.storage is not None
+                and self.storage() is adj.untyped_storage()
+                and self.key == key
+                and (not self.captured or _capturing()))
+
+
+class SteForms:
+    """``a_sym`` and ``d``, the inputs that :func:`ste_norm_aggregate`
+    forms from its adjacency, held from one aggregation to the next.
+
+    They change only with the adjacency's value, so each value is formed
+    once: :meth:`aggregate` reads the held forms while the adjacency's
+    storage and version counter (which ``.detach()`` shares, and every
+    in-place edit bumps) are those they were formed from, and forms anew
+    otherwise, by the same code as :func:`ste_norm_aggregate`. Each form
+    is written into the same buffers (``copy_``), one pair per shape,
+    dtypes, device and ``symmetric``, made at the first form outside a
+    CUDA graph capture; so a graph captured against them reads each value
+    that :meth:`form` writes. A replay runs no Python and reads no key:
+    code that replays graphs calls :meth:`form` wherever the adjacency
+    changes (``training/marglik_gnn.py::ScanRun``)."""
+
+    def __init__(self):
+        self._held: dict = {}
+
+    def aggregate(self, adj, s, threshold: float = 0.5,
+                  symmetric: bool = False, sign_grad: bool = False,
+                  grad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:func:`ste_norm_aggregate` on the held forms of ``adj``."""
+        plain = _plain(adj)
+        if plain is None:
+            return ste_norm_aggregate(adj, s, threshold, symmetric,
+                                      sign_grad, grad_mask)
+        count("ste.calls")
+        held = self._held.get(_slot(plain, s.dtype, symmetric))
+        if held is None or not held.holds(plain,
+                                          _key(plain, threshold)):
+            held = self.form(plain, threshold, symmetric, s.dtype)
+        a_sym = held.a_sym
+        if a_sym is None:
+            with torch.no_grad():
+                a_sym = _sym(adj, False)
+        return _SteNormAggregate.apply(adj, s, a_sym, held.d, threshold,
+                                       symmetric, sign_grad, grad_mask)
+
+    def form(self, adj, threshold: float, symmetric: bool,
+             dtype: torch.dtype) -> _Held:
+        """Form ``adj``'s ``a_sym`` and its degrees in ``dtype`` now, into
+        the held buffers where they exist. Outside a capture that makes
+        them; inside one, with none made yet, the forms are the graph's
+        own and nothing is held."""
+        count("ste.forms")
+        plain = _plain(adj)
+        if plain is None:
+            raise TypeError("SteForms.form takes an adjacency whose storage "
+                            "and version can be read")
+        with torch.no_grad(), torch._C._DisableFuncTorch():
+            a_sym = _sym(plain, symmetric)
+            d = _ste_degree(a_sym, threshold, dtype)
+            slot = _slot(plain, dtype, symmetric)
+            held = self._held.get(slot)
+            if held is None:
+                held = _Held(a_sym if symmetric else None, d)
+                if _capturing():
+                    return held
+                self._held[slot] = held
+            else:
+                if symmetric:
+                    held.a_sym.copy_(a_sym)
+                held.d.copy_(d)
+        held.storage = weakref.ref(plain.untyped_storage())
+        held.key = _key(plain, threshold)
+        held.captured = _capturing()
+        return held
+
+
+def _slot(adj, dtype, symmetric) -> tuple:
+    return (tuple(adj.shape), adj.dtype, adj.device, dtype, symmetric)
+
+
+def _key(adj, threshold) -> tuple:
+    return (adj.storage_offset(), tuple(adj.stride()), adj._version,
+            threshold)
 
 
 # ---------------------------------------------------------------------------

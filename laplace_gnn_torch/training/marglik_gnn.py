@@ -324,7 +324,8 @@ class TrainingPrograms:
         ``grad_norm`` rescales the gradient of ``adj`` alone, as JAX does
         (so it leaves LoRA's updates as they are). Spans: the -log
         marglik's, ``hypergrad`` (its gradient, rescaled) and
-        ``adj_update`` (the SGD step)."""
+        ``adj_update`` (the SGD step). It ends with the model's
+        ``form_adj`` of the new value."""
         nm = self.neg_marglik_fn(self.params, idx, yy)
         leaves = [self.params[k] for k in self.adj_names]
         with annotate("hypergrad"):
@@ -341,6 +342,9 @@ class TrainingPrograms:
                 p.grad = g
         with annotate("adj_update"):
             self.adj_opt.step()
+        # the new value's aggregation inputs, formed inside the step so
+        # that a captured hyperstep's graph carries the one form
+        self.model.form_adj(self.params)
         return nm.detach()
 
     def neg_marglik_eval(self, idx, yy):
@@ -972,10 +976,12 @@ class ScanRun:
     # --- a run ------------------------------------------------------------
     @torch.no_grad()
     def _load(self, params, tr_idx, tr_y, va_idx, va_y):
-        """Copy a call's inputs in and reset every piece of state (the
-        eigensolver's failure flag too)."""
+        """Copy a call's inputs in, form what the model derives from the
+        adjacency (``form_adj``, before any step reads it) and reset every
+        piece of state (the eigensolver's failure flag too)."""
         for k, v in self.params.items():
             v.copy_(params[k])
+        self.model.form_adj(self.params)
         reset_eigensolve_failures(self.params["adj"].device)
         for dst, src in ((self.tr_idx, tr_idx), (self.tr_y, tr_y),
                          (self.va_idx, va_idx), (self.va_y, va_y)):
