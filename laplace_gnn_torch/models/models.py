@@ -18,6 +18,7 @@ from ..nn.module import Linear, TapCollector
 from ..ops.adjacency import (binarize_ste, fill_diagonal, fill_diagonal_any,
                              normalize_adj, sample_neigh_adj, train_adj_mask)
 from ..ops.fused_spmm import StaticNormAdjOp, SteForms, norm_aggregate
+from ..profiling import annotate, count
 from .base_gnn import BaseGNN
 from .layers import GATConv, GCNConv, GraphSAGEConv
 
@@ -153,11 +154,13 @@ class STEGCN(BaseGNN):
             return FusedAdjOp(lambda s: self.ste_forms.aggregate(
                 adj, s, self.threshold, self.symmetric, self.sign_grad,
                 self.grad_adj_mask))
-        if self.symmetric:
-            adj = (adj + adj.T) / 2
-        adj = binarize_ste(adj, self.threshold, self.grad_adj_mask,
-                           self.sign_grad)
-        return normalize_adj(fill_diagonal(adj, 1.0))
+        with annotate("ste.composed"):
+            count("ste.composed.forms")
+            if self.symmetric:
+                adj = (adj + adj.T) / 2
+            adj = binarize_ste(adj, self.threshold, self.grad_adj_mask,
+                               self.sign_grad)
+            return normalize_adj(fill_diagonal(adj, 1.0))
 
     def form_adj(self, params: dict) -> None:
         if self.fused:

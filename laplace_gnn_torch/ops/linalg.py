@@ -9,6 +9,9 @@ torch's eigensolvers check their result's ``info`` on the host, so each
 call makes the host wait for the device: each counts ``host_sync``
 (``profiling.py``); the batched ones run under the span ``eigh`` and
 count ``eigh.calls`` (one per same-size group) and ``eigh.matrices``.
+The backward of :func:`small_eigvalsh` recomputes the eigenvectors under
+the span ``eigh.vectors`` (on the autograd engine's thread) and counts
+``eigh.vectors``, one per batched vector solve.
 
 :func:`batched_eigvalsh` sends matrices of up to ``SMALL_N`` rows to
 :func:`small_eigvalsh`: on a CUDA tensor the hand-written kernels of
@@ -27,7 +30,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..profiling import annotate, count, tracing
+from ..profiling import annotate, count, spanned, tracing
 from .cuda_build import Kernel, kernel_only, route
 
 SMALL_N = 128   # the largest matrix csrc/small_eigh.cu takes (MAX_N there)
@@ -234,7 +237,11 @@ class _SmallEigvalsh(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         (M,) = ctx.saved_tensors
-        V = small_eigenvectors(M)
+        if tracing():
+            count("eigh.vectors")
+            V = spanned("eigh.vectors", small_eigenvectors, M)
+        else:
+            V = small_eigenvectors(M)
         return (V * g[..., None, :]) @ V.mT
 
 
